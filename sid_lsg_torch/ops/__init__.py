@@ -1,0 +1,29 @@
+"""Hot ops of the port: each a CUDA kernel for Hopper beside its plain PyTorch
+version.  The tensor's device picks the path: CUDA launches the kernel, CPU
+runs the plain version."""
+
+from . import registry
+from .attention import attention, attention_ref, flash_attn_fwd
+from .groupnorm import (
+    gn_apply,
+    gn_apply_ref,
+    gn_stats,
+    gn_stats_ref,
+    group_norm,
+    group_norm_ref,
+    group_norm_silu,
+)
+
+__all__ = [
+    "registry",
+    "attention",
+    "attention_ref",
+    "flash_attn_fwd",
+    "gn_apply",
+    "gn_apply_ref",
+    "gn_stats",
+    "gn_stats_ref",
+    "group_norm",
+    "group_norm_ref",
+    "group_norm_silu",
+]

@@ -1,0 +1,148 @@
+"""Build, load and dispatch to the port's CUDA kernels.
+
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with ``ctypes``.  The sources compile in
+parallel, one ``nvcc`` each, and link into
+``sid_lsg_torch/_build/<hash>/libsidlsg_kernels.so``, where the hash covers
+the sources and the flags, so an edited source builds anew and an unchanged
+one loads at once.  A failed build raises; nothing falls back to the plain
+PyTorch versions.  ``use_kernel`` is the one place that picks a path: the
+kernel for CUDA tensors, the plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libsidlsg_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "sidlsg_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "sidlsg_gn_stats": [_P, _P, _P, _P, _I, _L, _I, _L, _F, _I, _P],
+    "sidlsg_gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_key() -> str:
+    """Hash of the kernel sources and the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(cuda_home, "bin", "nvcc")
+        if os.path.exists(cand):
+            nvcc = cand
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (neither on PATH nor under CUDA_HOME); "
+                           "the CUDA kernels cannot be built")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; return its path."""
+    out_dir = BUILD_ROOT / source_key()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building the same hash
+        if lib_path.exists():
+            return lib_path
+        srcs = sources()
+        objs = [out_dir / (src.stem + ".o") for src in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{src.name}:\n{log}" for src, p, log in zip(srcs, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        tmp = out_dir / (LIB_NAME + ".tmp")
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (out_dir / "build.log").write_text("\n".join(logs) + link.stdout)
+        os.replace(tmp, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.sidlsg_error_string.argtypes = [ctypes.c_int]
+        lib.sidlsg_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if err != 0:
+        msg = library().sidlsg_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def use_kernel(*tensors) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (run
+    the plain version); raise for any other device or a mix of devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    kind = devices.pop().type
+    if kind == "cpu":
+        return False
+    if kind == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device type {kind!r}")
+
+
+def dtype_code(t) -> int:
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {t.dtype}")
+    return code

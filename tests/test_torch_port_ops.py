@@ -1,0 +1,164 @@
+"""The port's ops (``sid_lsg_torch.ops``) against the JAX package's kernels.
+
+The plain PyTorch versions, which the CUDA kernels are held to on the card,
+are compared here with the Pallas kernels they replace, run in interpret
+mode on the CPU as ``tests/test_pallas_parity.py`` runs them, and with the
+JAX plain references.  Inputs come from numpy seeds.  Tolerance in f32:
+atol 2e-5 / rtol 1e-4 unless a test states another with its reason.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import torch  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from sid_lsg_tpu import ops as jops  # noqa: E402
+from sid_lsg_tpu.ops.attention import _attention_ref as jax_attention_ref  # noqa: E402
+from sid_lsg_tpu.ops.attention import _flash_fwd  # noqa: E402
+from sid_lsg_tpu.ops.groupnorm import (  # noqa: E402
+    _gn_silu_pallas_fwd,
+    _gn_tiled_pallas_fwd,
+    _group_norm_ref,
+)
+from sid_lsg_torch import ops  # noqa: E402
+from sid_lsg_torch.ops import _build  # noqa: E402
+
+torch.set_num_threads(2)
+F32 = dict(atol=2e-5, rtol=1e-4)
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _nchw(x_nhwc):
+    return torch.from_numpy(x_nhwc).permute(0, 3, 1, 2)
+
+
+def _nhwc(y):
+    return y.permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d", [(2, 3, 128, 128, 64), (2, 3, 200, 77, 40), (1, 1, 64, 64, 512)])
+def test_attention_ref_matches_pallas_flash(b, h, sq, sk, d):
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = _normal(rng, b, h, sq, d), _normal(rng, b, h, sk, d), _normal(rng, b, h, sk, d)
+    scale = d ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        j_out = jops.attention(q, k, v, impl="pallas")
+        f_out, f_lse = _flash_fwd(q, k, v, scale, 128, 128)
+    out, lse = ops.attention_ref(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(f_out), **F32)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(f_lse), **F32)
+    # On CPU tensors the kernel wrapper and the dispatcher are the plain version.
+    fo, fl = ops.flash_attn_fwd(*map(torch.from_numpy, (q, k, v)))
+    torch.testing.assert_close(fo, out, atol=0, rtol=0)
+    torch.testing.assert_close(fl, lse, atol=0, rtol=0)
+    torch.testing.assert_close(ops.attention(*map(torch.from_numpy, (q, k, v))), out, atol=0, rtol=0)
+
+
+def test_causal_attention_matches_jax_ref():
+    rng = np.random.default_rng(77)
+    q, k, v = (_normal(rng, 2, 2, 77, 16) for _ in range(3))
+    ref = jax_attention_ref(q, k, v, 16 ** -0.5, True)
+    out = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+def _gn_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    x = _normal(rng, *shape) * 2 + 0.5
+    c = shape[-1]
+    return x, _normal(rng, c) + 1, _normal(rng, c)
+
+
+def _port_gn(x, gamma, beta, groups, eps, silu):
+    y = ops.group_norm(_nchw(x), torch.from_numpy(gamma), torch.from_numpy(beta), groups, eps, silu)
+    return _nhwc(y)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_matches_pallas_single_block(silu):
+    x, gamma, beta = _gn_inputs(1, (2, 8, 8, 128))
+    with pltpu.force_tpu_interpret_mode():
+        ref = _gn_silu_pallas_fwd(x, gamma, beta, 8, 1e-5, silu)
+    np.testing.assert_allclose(_port_gn(x, gamma, beta, 8, 1e-5, silu), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_matches_pallas_tiled(silu):
+    # 9*5 = 45 rows in blocks of 16: three tiles, the last one padded.
+    x, gamma, beta = _gn_inputs(2, (2, 9, 5, 128))
+    with pltpu.force_tpu_interpret_mode():
+        ref = _gn_tiled_pallas_fwd(x, gamma, beta, 16, 1e-6, silu, block=16)
+    np.testing.assert_allclose(_port_gn(x, gamma, beta, 16, 1e-6, silu), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_matches_jax_ref_sd_channels(silu):
+    x, gamma, beta = _gn_inputs(3, (2, 8, 8, 320))
+    ref = _group_norm_ref(x, gamma, beta, 32, 1e-5, silu)
+    np.testing.assert_allclose(_port_gn(x, gamma, beta, 32, 1e-5, silu), np.asarray(ref), **F32)
+
+
+def test_group_norm_clamps_negative_variance_like_jax_ref():
+    """Groups of one constant value near 100: the one-pass f32 variance
+    E[x^2] - E[x]^2 cancels to rounding noise, negative in some groups, where
+    rsqrt(var + eps) without the clamp at 0 gives NaN.  Tolerance atol 0.05:
+    with var clamped to 0, |x * scale_c| reaches 100 * |gamma| / sqrt(1e-5),
+    about 1e5, where one f32 step is 0.008, so the two implementations'
+    outputs agree only to a few such steps."""
+    rng = np.random.default_rng(0)
+    g, c = 16, 64
+    consts = (100.0 + rng.uniform(0, 1, size=(2, 1, 1, g))).astype(np.float32)
+    x = np.repeat(np.broadcast_to(consts, (2, 6, 6, g)), c // g, axis=3).astype(np.float32)
+    gamma = _normal(rng, c) + 1
+    beta = _normal(rng, c)
+    xt = _nchw(x)
+    xf = xt.reshape(2, c, -1)
+    g_sum = xf.sum(2).reshape(2, g, -1).sum(2)
+    g_sq = xf.square().sum(2).reshape(2, g, -1).sum(2)
+    n = float(xf.shape[2] * (c // g))
+    unclamped = g_sq / n - (g_sum / n).square()
+    assert (unclamped < -1e-5).any(), "input does not drive the one-pass variance negative"
+    out = _port_gn(x, gamma, beta, g, 1e-5, False)
+    assert np.isfinite(out).all()
+    ref = np.asarray(_group_norm_ref(x, gamma, beta, g, 1e-5, False))
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(out, ref, atol=0.05, rtol=0)
+
+
+def test_entry_points_raise_without_a_card():
+    """The default device is the card; where torch finds none, entry points raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from sid_lsg_torch.diffusion.ddpm import DDPMScheduler
+    from sid_lsg_torch.pipeline import SDPipeline
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SDPipeline.random_init("tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DDPMScheduler()
+
+
+def test_kernel_wrappers_have_no_fallback_for_other_devices():
+    q = torch.empty(1, 1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="device type"):
+        ops.flash_attn_fwd(q, q, q)
+    x = torch.empty(1, 8, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="device type"):
+        ops.gn_stats(x, 4, 1e-5)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert _build.source_key() == _build.source_key()
+    assert {p.name for p in _build.sources()} >= {"flash_attn_fwd.cu", "gn_stats.cu", "gn_apply.cu"}
