@@ -5,9 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's main path, one-step SD1.5 text-to-image generation at
-full width (batch 4, 512x512, init_timestep 625, random weights from a seed),
-through the CUDA kernels built from ``sid_lsg_torch/csrc``:
+It drives the port's two paths at full SD1.5 width on random weights from a
+seed, through the CUDA kernels built from ``sid_lsg_torch/csrc``: one-step
+text-to-image generation (batch 4, 512x512, init_timestep 625; phases 2-6)
+and the SiD-LSG distillation train step (phases 7-11).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time and
    the card's name and power limit.
@@ -33,6 +34,34 @@ through the CUDA kernels built from ``sid_lsg_torch/csrc``:
    bound, its plain version and a library yardstick (SDPA for K1,
    ``torch.var_mean`` for K2; F.group_norm+SiLU for K2+K3 together).  Times
    are summed over one main-path run: sum over shapes of launches x ms.
+
+7. Train step: a ``Trainer`` built from the ``sid_train`` flags in
+   ``TRAIN_ARGS`` (SD1.5, batch 4 in one microbatch, kappa 1.5, bf16,
+   remat ``flash``); counters zeroed, one step (the training path's main
+   run): both losses finite, G, psi and the EMA changed, K1-K4 launched, and
+   no K1 launch inside the backward sweep; then one step with remat ``full``,
+   where the backward sweep launches K1 once per attention of the forwards
+   that carry grad.
+8. Kernel check of the training path: K4, K5 and K6 against
+   ``flash_attn_bwd_ref`` at every shape the step gave K4, and K4 against
+   K5 + K6; K1, K2 and K3 at the step's shapes phase 3 did not check.  The
+   backward's outputs are linear in dO and differ in size by orders of
+   magnitude, so each is compared after scaling by the power of two that
+   brings its plain version to RMS about 1 (the same as scaling dO, exactly
+   in bf16).  Tolerances as phase 3.
+9. Small reference for training: the tiny preset, f32, one psi-phase and
+   one theta-phase gradient on the card and on the CPU from the same weights
+   and the same CPU-generator draws: losses within rtol 1e-4, every gradient
+   tensor within rtol 1e-3 and atol 1e-4 * max|ref|.
+10. Train-step timing: median seconds per step over 5 steps, images/s, peak
+   device memory; one step under torch.profiler (busy, idle share, top
+   kernels); the step's FLOPs (FlopCounterMode plus the attention kernels'
+   FLOPs from the recorded shapes, which the counter cannot see) as ``mfu``
+   over 989 TFLOP/s.
+11. Backward kernel timing: K4, K5 and K6 at the step's shapes with CUDA
+   events, summed over one step (K4's launches x time; K5 and K6 as if they
+   replaced K4), beside bound, plain version and SDPA's backward (forward +
+   backward minus forward).
 
 Any failure raises and exits non-zero.  The last line is the result object.
 """
@@ -64,7 +93,25 @@ SOURCES = {
     "flash_attn_fwd": ("sid_lsg_torch/csrc/flash_attn_fwd.cu", "sid_lsg_tpu/ops/attention.py:127"),
     "gn_stats": ("sid_lsg_torch/csrc/gn_stats.cu", "sid_lsg_tpu/ops/groupnorm.py:161"),
     "gn_apply": ("sid_lsg_torch/csrc/gn_apply.cu", "sid_lsg_tpu/ops/groupnorm.py:196"),
+    "flash_attn_bwd": ("sid_lsg_torch/csrc/flash_attn_bwd.cu", "sid_lsg_tpu/ops/attention.py:234"),
+    "flash_attn_bwd_dq": ("sid_lsg_torch/csrc/flash_attn_bwd_twopass.cu",
+                          "sid_lsg_tpu/ops/attention.py:326"),
+    "flash_attn_bwd_dkv": ("sid_lsg_torch/csrc/flash_attn_bwd_twopass.cu",
+                           "sid_lsg_tpu/ops/attention.py:378"),
 }
+SERVING_KERNELS = ("flash_attn_fwd", "gn_stats", "gn_apply")
+BWD_KERNELS = ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# The training path: `python -m sid_lsg_torch.cli.sid_train` with these flags
+# (the paper's kappa = 1.5, remat `flash`); --max-ticks 1 keeps the schedule
+# short of a state dump, which the port refuses.
+TRAIN_ARGS = ["--outdir", "chiprun_out/train", "--sd_model", "sd15", "--batch", "4",
+              "--batch-micro", "4", "--cfg_train_fake", "1.5", "--cfg_eval_fake", "1.5",
+              "--cfg_eval_real", "1.5", "--init_timestep", "625", "--bf16", "1", "--grad-ckpt", "1",
+              "--remat-policy", "flash", "--max-ticks", "1"]
+TRAIN_BATCH = 4
+TIMED_STEPS = 5
+TOL_LOSS = 1e-4  # phase 9: relative, losses
+TOL_GRAD = 1e-3  # phase 9: relative, and 1e-4 * max|ref| absolute, per gradient tensor
 
 
 def require(cond: bool, msg: str) -> None:
@@ -108,17 +155,18 @@ def time_ms(fn, min_iters: int = 10, min_total_ms: float = 30.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def trace_generate(pipe, latents) -> None:
-    """Print the device time of one ``generate`` by kernel name, from a torch.profiler
-    trace: busy = union of the CUDA kernels' intervals, idle share = 1 - busy
-    over the host's wall time of the call."""
+def trace(label: str, fn, top: int = 15, host_top: int = 0) -> None:
+    """Print the device time of one call of ``fn`` by kernel name, from a
+    torch.profiler trace: busy = union of the CUDA kernels' intervals, idle
+    share = 1 - busy over the host's wall time of the call; with
+    ``host_top``, also the host-side ops with the most self CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.generate(PROMPTS, latents, init_timestep=INIT_TIMESTEP)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -127,7 +175,8 @@ def trace_generate(pipe, latents) -> None:
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     if not spans:
-        print("[trace] the profiler recorded no device kernels: device busy time not measured")
+        print(f"[trace] {label}: the profiler recorded no device kernels: device busy time "
+              f"not measured")
         return
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted(spans):
@@ -135,11 +184,17 @@ def trace_generate(pipe, latents) -> None:
             busy_us += b - max(a, end)
             end = b
     busy_ms = busy_us / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    print(f"[trace] one generate: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+    print(f"[trace] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, {len(spans)} kernels")
-    for name, ms in top:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"[trace]   {ms:9.3f} ms  {name[:110]}")
+    if host_top:
+        host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+        total_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+        print(f"[trace] {label}: host ops' self CPU time {total_ms:.3f} ms over "
+              f"{sum(e.count for e in host)} calls; the largest:")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+            print(f"[trace]   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
 def kernel_cases(name, key, gen):
@@ -188,6 +243,322 @@ def kernel_cases(name, key, gen):
             None, TOL_BF16 if dtype == torch.bfloat16 else TOL_F32, work)
 
 
+def check_outputs(label, got, ref, tol, scale_each: bool = False) -> float:
+    """Compare each output with its plain version (``scale_each``: both
+    scaled by the power of two that brings the plain one to RMS about 1);
+    print and require the tolerance; return the largest absolute error."""
+    import torch
+
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        t = TOL_F32 if g.dtype == torch.float32 else tol
+        if scale_each:
+            rms = r.float().square().mean().sqrt().item()
+            c = 2.0 ** round(-math.log2(max(rms, 1e-30)))
+            g, r = g.float() * c, r.float() * c
+        abs_err, rel_err, ratio, rel_l2 = close_errors(g, r, **t)
+        worst = max(worst, abs_err)
+        print(f"[check] {label} out{i}: max abs {abs_err:.3e}, max rel {rel_err:.3e}, "
+              f"max err/tol {ratio:.3f} (atol {t['atol']}, rtol {t['rtol']}), "
+              f"rel L2 {rel_l2:.3e} (<= {REL_L2}), max |ref| {r.abs().max().item():.3e}")
+        require(ratio <= 1.0 and rel_l2 <= REL_L2, f"{label} output {i} out of tolerance")
+    return worst
+
+
+def check_forward_kernel(name, key, gen) -> float:
+    """K1, K2 or K3 against its plain version at one recorded shape."""
+    import torch
+
+    kern, plain, _, tol, _ = kernel_cases(name, key, gen)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    if not isinstance(got, tuple):
+        got, ref = (got,), (ref,)
+    return check_outputs(f"{name} {key}", got, ref, tol)
+
+
+def attention_flops(keys, per_element: int) -> float:
+    """per_element * B * H * S_q * S_k * D summed over recorded launches."""
+    total = 0.0
+    for (qs, ks, _), n in keys.items():
+        b, h, sq, d = qs
+        total += n * per_element * b * h * sq * ks[2] * d
+    return total
+
+
+def bwd_cases(key, gen):
+    """For one shape K4 was launched at: inputs made as K1's check makes
+    them, the plain backward (f32) and, per backward kernel, (kernel fn,
+    plain outputs it is held to, bytes, flops); plus SDPA's forward with
+    grad and its forward + backward on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from sid_lsg_torch import ops
+
+    qs, ks, dt = key
+    dtype = getattr(torch, dt.split(".")[1])
+    b, h, sq, d = qs
+    sk = ks[2]
+    dev = torch.device("cuda")
+    q = torch.randn(qs, generator=gen, device=dev).to(dtype)
+    k = torch.randn(ks, generator=gen, device=dev).to(dtype)
+    v = (torch.randn(ks, generator=gen, device=dev) * math.sqrt(sk / math.e)).to(dtype)
+    dout = torch.randn(qs, generator=gen, device=dev).to(dtype)
+    out, lse = ops.attention_ref(q.float(), k.float(), v.float())
+    out = out.to(dtype)
+    scale = d ** -0.5
+    args = (q, k, v, out, lse, dout, scale)
+    f32 = (q.float(), k.float(), v.float(), out.float(), lse, dout.float(), scale)
+    plain = lambda: ops.flash_attn_bwd_ref(*f32)
+    ref = plain()
+    es, bh = q.element_size(), b * h
+    cases = {
+        "flash_attn_bwd": (lambda: ops.flash_attn_bwd(*args), ref,
+                           4 * bh * (sq + sk) * d * es + 4 * bh * sq, 10 * bh * sq * sk * d),
+        "flash_attn_bwd_dq": (lambda: (ops.flash_attn_bwd_dq(*args),), ref[:1],
+                              bh * (4 * sq + 2 * sk) * d * es + 4 * bh * sq, 6 * bh * sq * sk * d),
+        "flash_attn_bwd_dkv": (lambda: ops.flash_attn_bwd_dkv(*args), ref[1:],
+                               bh * (3 * sq + 4 * sk) * d * es + 4 * bh * sq, 8 * bh * sq * sk * d),
+    }
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl)
+    sdpa_both = lambda: torch.autograd.grad(sdpa_fwd(), (ql, kl, vl), dout)
+    return cases, plain, (sdpa_fwd, sdpa_both)
+
+
+class K1Sweep:
+    """Counts calls of K1's wrapper made inside the autograd engine's
+    backward sweep (the remat recompute) and those made by forwards whose
+    queries carry grad, by wrapping ``ops.attention.flash_attn_fwd`` (which
+    the custom op's forward looks up at each call) while active."""
+
+    def __init__(self):
+        self.backward = 0
+        self.forward_grad = 0
+
+    def __enter__(self):
+        import torch
+
+        self._module = sys.modules["sid_lsg_torch.ops.attention"]
+        self._fwd = self._module.flash_attn_fwd
+
+        def fwd(q, *args, **kwargs):
+            if torch._C._current_autograd_node() is not None:
+                self.backward += 1
+            elif q.requires_grad:
+                self.forward_grad += 1
+            return self._fwd(q, *args, **kwargs)
+
+        self._module.flash_attn_fwd = fwd
+        return self
+
+    def __exit__(self, *exc):
+        self._module.flash_attn_fwd = self._fwd
+
+
+def tiny_train_grads(device):
+    """Phase 9 on one device: psi-phase and theta-phase losses and gradients
+    of the tiny preset in f32 from fixed weights and CPU-generator draws."""
+    import torch
+
+    from sid_lsg_torch.diffusion.ddpm import DDPMScheduler, SchedulerConfig
+    from sid_lsg_torch.models import TINY
+    from sid_lsg_torch.models.unet import unet_apply_fn
+    from sid_lsg_torch.pipeline import random_state_dicts
+    from sid_lsg_torch.training.distill import DistillConfig, make_loss_fns
+
+    teacher = random_state_dicts(TINY, "cpu", seed=0)["unet"]
+    wgen = torch.Generator().manual_seed(1)
+    fake = {k: v + 0.02 * torch.randn(v.shape, generator=wgen) for k, v in teacher.items()}
+    g = {k: v + 0.02 * torch.randn(v.shape, generator=wgen) for k, v in teacher.items()}
+    on = lambda tree, grad: {k: v.to(device).requires_grad_(grad) for k, v in tree.items()}
+    cfg = DistillConfig(latent_size=TINY.unet.sample_size, latent_channels=TINY.unet.in_channels,
+                        cfg_train_fake=1.5, cfg_eval_fake=1.5, cfg_eval_real=1.5,
+                        dtype=torch.float32)
+    sched = DDPMScheduler(SchedulerConfig.sd(TINY.prediction_type), device=device)
+    L = make_loss_fns(unet_apply_fn(TINY.unet, torch.float32), sched, cfg)
+    draws = torch.Generator().manual_seed(5)
+    mb, dim = 2, TINY.unet.cross_attention_dim
+    z, noise, t, init_t = L.draw(draws, mb, device)
+    emb = (torch.randn(mb, 77, dim, generator=draws) * 0.5).to(device)
+    unc = (torch.randn(77, dim, generator=draws) * 0.5).to(device).expand(mb, 77, dim)
+    with torch.no_grad():
+        images = L.generate(on(g, False), z, emb, init_t)
+    pf = on(fake, True)
+    loss_f, _ = L.psi_loss(pf, on(teacher, False), images, noise, emb, unc, t, float(mb))
+    grads_f = torch.autograd.grad(loss_f, list(pf.values()))
+    pg = on(g, True)
+    loss_g, _ = L.g_loss(pg, on(fake, False), on(teacher, False), z, noise, emb, unc, t, init_t,
+                         float(mb))
+    grads_g = torch.autograd.grad(loss_g, list(pg.values()))
+    return ((float(loss_f.detach()), float(loss_g.detach())),
+            {"psi": dict(zip(pf, (x.cpu() for x in grads_f))),
+             "theta": dict(zip(pg, (x.cpu() for x in grads_g)))})
+
+
+def train_phases(card: str, gen, serving_keys) -> list:
+    """Phases 7-11; returns the kernels-line entries of K4, K5 and K6."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sid_lsg_torch.cli import sid_train
+    from sid_lsg_torch.models.unet import unet_apply_fn
+    from sid_lsg_torch.ops import registry
+    from sid_lsg_torch.training.distill import make_train_step
+    from sid_lsg_torch.training.loop import Trainer
+
+    # 7. Train step at full width, remat flash, counters zeroed.
+    t0 = time.perf_counter()
+    trainer = Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(TRAIN_ARGS)))
+    torch.cuda.synchronize()
+    print(f"[train] Trainer (sd15, random weights, mb {TRAIN_BATCH}, kappa 1.5, bf16, remat "
+          f"flash) built in {time.perf_counter() - t0:.3f} s")
+    st = trainer.state
+    before = {part: {k: v.detach().clone() for k, v in getattr(st, part).items()}
+              for part in ("params_G", "params_fake", "ema")}
+    registry.reset()
+    t0 = time.perf_counter()
+    with K1Sweep() as sweep:
+        metrics = trainer.step()
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    train_launches = registry.counts()
+    train_keys = {name: registry.launches_by_key(name) for name in registry.KERNELS}
+    losses = {k: float(metrics[k]) for k in ("fake_score_loss", "g_loss")}
+    print(f"[train] main step in {first_s:.3f} s: losses {losses}, launches {train_launches}, "
+          f"K1 in forwards with grad {sweep.forward_grad}, K1 in the backward sweep "
+          f"{sweep.backward}")
+    require(all(math.isfinite(x) for x in losses.values()), f"losses not finite: {losses}")
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_stats", "gn_apply"):
+        require(train_launches[name] > 0, f"{name} was not launched by the train step")
+    require(sweep.forward_grad > 0 and sweep.backward == 0,
+            "remat flash: the backward sweep launched the forward attention kernel")
+    for part, old in before.items():
+        new = getattr(st, part)
+        changed = sum(not torch.equal(old[k], new[k].detach()) for k in old)
+        print(f"[train] {part}: {changed} of {len(old)} tensors changed")
+        require(changed >= 0.99 * len(old), f"{part}: only {changed} of {len(old)} tensors changed")
+    del before
+    step_full = make_train_step(unet_apply_fn(trainer.pipe.config.unet, torch.bfloat16, "full"),
+                                trainer.pipe.scheduler, trainer.dcfg, trainer.opt_g,
+                                trainer.opt_fake)
+    registry.reset()
+    full_s = []
+    with K1Sweep() as full:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            trainer.state, _ = step_full(trainer.state, trainer.teacher, trainer.next_batch(),
+                                         trainer.generator)
+            torch.cuda.synchronize()
+            full_s.append(time.perf_counter() - t0)
+    full.forward_grad //= 2
+    full.backward //= 2
+    print(f"[train] remat full: K1 in forwards with grad {full.forward_grad}, in the backward "
+          f"sweep {full.backward} per step; remat flash: {sweep.forward_grad} and "
+          f"{sweep.backward}; remat full seconds per step {full_s}")
+    require(full.backward == full.forward_grad == sweep.forward_grad > 0,
+            "remat full: not one backward-sweep K1 launch per attention")
+
+    # 8. Kernel check at the step's shapes.
+    max_abs = {name: 0.0 for name in BWD_KERNELS}
+    bwd = {}
+    for key in sorted(train_keys["flash_attn_bwd"], key=str):
+        cases, plain, sdpa = bwd_cases(key, gen)
+        outs = {}
+        for name, (kern, ref, _, _) in cases.items():
+            outs[name] = kern()
+            torch.cuda.synchronize()
+            max_abs[name] = max(max_abs[name], check_outputs(f"{name} {key}", outs[name], ref,
+                                                             TOL_BF16, scale_each=True))
+        twopass = outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"]
+        check_outputs(f"flash_attn_bwd vs two-pass {key}", outs["flash_attn_bwd"], twopass,
+                      TOL_BF16, scale_each=True)
+        bwd[key] = (cases, plain, sdpa)
+    for name in SERVING_KERNELS:
+        for key in sorted(set(train_keys[name]) - set(serving_keys[name]), key=str):
+            check_forward_kernel(name, key, gen)
+
+    # 9. Small reference for training: tiny, f32, card vs CPU.
+    registry.reset()
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = tiny_train_grads("cuda"), tiny_train_grads("cpu")
+    tiny_launches = registry.counts()
+    print(f"[tiny-train] losses card {loss_card}, CPU {loss_cpu}; card launches {tiny_launches}")
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_stats", "gn_apply"):
+        require(tiny_launches[name] > 0, f"tiny train: {name} not launched on the card")
+    for a, b in zip(loss_card, loss_cpu):
+        require(abs(a - b) <= TOL_LOSS * abs(b), f"tiny train: losses {loss_card} vs {loss_cpu}")
+    for phase in ("psi", "theta"):
+        worst = 0.0
+        for k, ref in grads_cpu[phase].items():
+            atol = 1e-4 * max(float(ref.abs().max()), 1e-8)
+            err = (grads_card[phase][k] - ref).abs()
+            ratio = float((err / (atol + TOL_GRAD * ref.abs())).max())
+            worst = max(worst, ratio)
+            require(ratio <= 1.0, f"tiny train: {phase} gradient of {k} err/tol {ratio:.3f}")
+        print(f"[tiny-train] {phase}: {len(grads_cpu[phase])} gradient tensors, max err/tol "
+              f"{worst:.3f} (rtol {TOL_GRAD}, atol 1e-4 max|ref|)")
+
+    # 10. Train-step timing, trace, FLOPs.
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train-time] seconds per step (SD1.5, batch {TRAIN_BATCH}, kappa 1.5, bf16, remat "
+          f"flash): {step_s}, median {med}, {TRAIN_BATCH / med} images/s, peak device memory "
+          f"{peak_gib:.3f} GiB on {card}")
+    trace("one train step", trainer.step, top=20, host_top=20)
+    with FlopCounterMode(display=False) as counter:
+        trainer.step()
+    counted = counter.get_total_flops()
+    attn = (attention_flops(train_keys["flash_attn_fwd"], 4)
+            + attention_flops(train_keys["flash_attn_bwd"], 10))
+    total = counted + attn
+    print(f"[train-flops] per step: FlopCounterMode {counted:.6e} (the remat recompute of "
+          f"convolutions and projections included), attention kernels {attn:.6e}, total "
+          f"{total:.6e}; mfu {total / med / PEAK_FLOPS['torch.bfloat16']:.4f} (over 989 TFLOP/s "
+          f"at the median step time)")
+    del trainer
+
+    # 11. Backward kernel timing at the step's shapes, summed over one step.
+    entries = []
+    rows = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                   "library_ms": 0.0} for name in BWD_KERNELS}
+    for key, (cases, plain, (sdpa_fwd, sdpa_both)) in sorted(bwd.items(), key=lambda kv: str(kv[0])):
+        n = train_keys["flash_attn_bwd"][key]
+        plain_ms = time_ms(plain)
+        sdpa_bwd_ms = time_ms(sdpa_both) - time_ms(sdpa_fwd)
+        for name, (kern, _, nbytes, flops) in cases.items():
+            ops_ms = flops / PEAK_FLOPS[key[2]] * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            ms = time_ms(kern)
+            r = rows[name]
+            for f, x in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", max(ops_ms, bytes_ms)),
+                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms), ("library_ms", sdpa_bwd_ms)):
+                r[f] += n * x
+            print(f"[time] {name} {key} x{n}: {ms:.4f} ms, plain {plain_ms:.4f}, bound "
+                  f"{max(ops_ms, bytes_ms):.4f}, SDPA backward {sdpa_bwd_ms:.4f}")
+    for name in BWD_KERNELS:
+        r = rows[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": train_launches[name],
+            "max_abs_err": max_abs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if r["ops_ms"] > r["bytes_ms"] else "bytes",
+            "library_ms": r["library_ms"] if name == "flash_attn_bwd" else None,
+        })
+    print(f"[time] per train step: K4 {rows['flash_attn_bwd']['ms']:.4f} ms, K5 + K6 "
+          f"{rows['flash_attn_bwd_dq']['ms'] + rows['flash_attn_bwd_dkv']['ms']:.4f} ms, SDPA "
+          f"backward {rows['flash_attn_bwd']['library_ms']:.4f} ms")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -231,29 +602,15 @@ def main() -> int:
             f"images {tuple(images.shape)} {images.dtype}")
     per_image_std = images.float().flatten(1).std(dim=1)
     require(bool((per_image_std > 0).all()), f"constant image(s): std {per_image_std.tolist()}")
-    keys = {name: registry.launches_by_key(name) for name in registry.KERNELS}
+    keys = {name: registry.launches_by_key(name) for name in SERVING_KERNELS}
     print(f"[warm-up] x0 finite, images {tuple(images.shape)} std {per_image_std.tolist()}")
 
     # 3. Kernel check at every shape the generation launched.
     gen = torch.Generator("cuda").manual_seed(1234)
     max_abs = {}
-    for name in registry.KERNELS:
+    for name in SERVING_KERNELS:
         require(keys[name], f"{name}: the warm-up generation never launched it")
-        worst = 0.0
-        for key in sorted(keys[name], key=str):
-            kern, plain, _, tol, _ = kernel_cases(name, key, gen)
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
-            for i, (g, r) in enumerate(pairs):
-                t = TOL_F32 if g.dtype == torch.float32 else tol
-                abs_err, rel_err, ratio, rel_l2 = close_errors(g, r, **t)
-                worst = max(worst, abs_err)
-                print(f"[check] {name} {key} out{i}: max abs {abs_err:.3e}, max rel {rel_err:.3e}, "
-                      f"max err/tol {ratio:.3f} (atol {t['atol']}, rtol {t['rtol']}), "
-                      f"rel L2 {rel_l2:.3e} (<= {REL_L2}), max |ref| {r.abs().max().item():.3e}")
-                require(ratio <= 1.0 and rel_l2 <= REL_L2, f"{name} {key} output {i} out of tolerance")
-        max_abs[name] = worst
+        max_abs[name] = max(check_forward_kernel(name, key, gen) for key in sorted(keys[name], key=str))
 
     # 4. Small reference: tiny preset, card (kernels) vs CPU (plain versions), f32.
     cpu = SDPipeline.random_init("tiny", dtype=torch.float32, device="cpu", seed=0)
@@ -278,10 +635,10 @@ def main() -> int:
     torch.cuda.synchronize()
     batch_s = [time.perf_counter() - t0]
     launches = registry.counts()
-    main_keys = {name: registry.launches_by_key(name) for name in registry.KERNELS}
+    main_keys = {name: registry.launches_by_key(name) for name in SERVING_KERNELS}
     print(f"[main] launches {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the main path")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0, f"{name} was not launched on the main path")
     require(images.shape == (BATCH, 512, 512, 3), f"images {tuple(images.shape)}")
     for _ in range(9):
         t0 = time.perf_counter()
@@ -290,12 +647,12 @@ def main() -> int:
         batch_s.append(time.perf_counter() - t0)
     print(f"[main] per-batch seconds (batch {BATCH}, 512x512, 1 step): {batch_s}, "
           f"median {statistics.median(batch_s)} on {card}")
-    trace_generate(pipe, latents)
+    trace("one generate", lambda: pipe.generate(PROMPTS, latents, init_timestep=INIT_TIMESTEP))
 
     # 6. Timing at the main path's shapes, summed over one main-path run.
     kernels = []
     pair = {"kernels_ms": 0.0, "library_ms": 0.0}
-    for name in registry.KERNELS:
+    for name in SERVING_KERNELS:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                "library_ms": 0.0}
         for key, n in sorted(main_keys[name].items(), key=lambda kv: str(kv[0])):
@@ -331,6 +688,9 @@ def main() -> int:
         pair["library_ms"] += n * time_ms(ref)
     print(f"[time] GroupNorm(+SiLU) per main-path run: K2+K3 {pair['kernels_ms']:.4f} ms, "
           f"F.group_norm(+silu) {pair['library_ms']:.4f} ms")
+
+    del pipe, card_tiny, cpu
+    kernels += train_phases(card, gen, keys)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

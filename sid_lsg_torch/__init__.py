@@ -1,9 +1,11 @@
 """SiD-LSG in PyTorch for NVIDIA Hopper: the port of ``sid_lsg_tpu``.
 
 Layer map (mirrors the JAX package):
-  cli/        -- generate_onestep entry point
+  cli/        -- generate_onestep and sid_train entry points
   pipeline.py -- SDPipeline: text tower + UNet + VAE decoder + scheduler
-  diffusion/  -- DDPM schedule math, SiD sampler, per-seed latents
+  training/   -- the distillation step, optimizer state, LoRA, Trainer loop
+  data/, runtime/, utils/ -- prompts, generator snapshots, host helpers
+  diffusion/  -- DDPM schedule math, SiD sampler and denoiser, per-seed latents
   models/     -- UNet2DCondition, AutoencoderKL decoder, CLIP text tower,
                  configs, tokenizer, weights carried from the JAX package
   ops/        -- CUDA kernels (csrc/) beside their plain PyTorch versions

@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from . import parse_int_list
+from . import int_range, parse_bool, parse_int_list
 from .pngio import write_png
 from ..diffusion.rng import StackedRandomGenerator
 
@@ -86,37 +86,19 @@ def generate_images(pipe, captions: List[str], seeds: List[int], outdir: str,
     return written
 
 
-def _bool(s: str) -> bool:
-    low = s.lower()
-    if low in ("1", "true", "yes", "y", "t", "on"):
-        return True
-    if low in ("0", "false", "no", "n", "f", "off"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a boolean: {s!r}")
-
-
-def _int_range(lo: int, hi: Optional[int] = None):
-    def parse(s: str) -> int:
-        v = int(s)
-        if v < lo or (hi is not None and v > hi):
-            raise argparse.ArgumentTypeError(f"{v} is outside [{lo}, {hi if hi is not None else 'inf'}]")
-        return v
-    return parse
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="One-step SiD-LSG image generation (PyTorch port).")
     p.add_argument("--outdir", required=True, help="Where to save images")
     p.add_argument("--seeds", default="0-63", help="Random seeds (e.g. 1,2,5-10); double as caption indices")
     p.add_argument("--subdirs", action="store_true", help="Subdirectory per 1000 seeds")
-    p.add_argument("--batch", dest="max_batch_size", type=_int_range(1), default=16, help="Maximum batch size")
-    p.add_argument("--num", dest="num_samples", type=_int_range(1), default=30000, help="Maximum number of images")
-    p.add_argument("--init_timestep", type=_int_range(0, 999), default=625)
+    p.add_argument("--batch", dest="max_batch_size", type=int_range(1), default=16, help="Maximum batch size")
+    p.add_argument("--num", dest="num_samples", type=int_range(1), default=30000, help="Maximum number of images")
+    p.add_argument("--init_timestep", type=int_range(0, 999), default=625)
     p.add_argument("--text_prompts", default="prompts/captions.txt", help="Captions file")
     p.add_argument("--repo_id", default="sd15", help="Model preset (sd15/sd21base/tiny), random weights")
-    p.add_argument("--use_bf16", type=_bool, default=True, help="bf16 activations")
-    p.add_argument("--num_steps_eval", type=_int_range(1), default=1)
-    p.add_argument("--custom_seed", type=_bool, default=False, help="Map seed list positions to caption indices")
+    p.add_argument("--use_bf16", type=parse_bool, default=True, help="bf16 activations")
+    p.add_argument("--num_steps_eval", type=int_range(1), default=1)
+    p.add_argument("--custom_seed", type=parse_bool, default=False, help="Map seed list positions to caption indices")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
 

@@ -1,8 +1,9 @@
 """DDPM noise-schedule math on tensors.
 
 Port of ``sid_lsg_tpu/diffusion/ddpm.py`` (``SchedulerConfig``,
-``make_betas``, ``DDPMScheduler`` with ``add_noise``, ``scale_model_input`` and
-``pred_original_sample``).  The tables are computed in float64 with numpy and
+``make_betas``, ``DDPMScheduler`` with ``add_noise``, ``scale_model_input``,
+``get_velocity``, ``pred_original_sample`` and ``snr``, and
+``compute_snr``).  The tables are computed in float64 with numpy and
 stored as f32 tensors on the scheduler's device; per-sample coefficients are
 gathers, so every method is vectorised over the batch.
 """
@@ -84,6 +85,13 @@ class DDPMScheduler:
         del timesteps
         return sample
 
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        """v-prediction target sqrt(abar) noise - sqrt(1 - abar) sample."""
+        nd = sample.dim()
+        return (self._gather(self.sqrt_alphas_cumprod, timesteps, nd) * noise
+                - self._gather(self.sqrt_one_minus_alphas_cumprod, timesteps, nd) * sample)
+
     def pred_original_sample(self, model_output: torch.Tensor, timesteps: torch.Tensor,
                              sample: torch.Tensor) -> torch.Tensor:
         """x0 estimate: the vectorised ``step(...).pred_original_sample``."""
@@ -101,3 +109,13 @@ class DDPMScheduler:
         if self.config.clip_sample:
             x0 = x0.clamp(-self.config.clip_sample_range, self.config.clip_sample_range)
         return x0
+
+    def snr(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """Signal-to-noise ratio abar / (1 - abar) per timestep."""
+        ac = self.alphas_cumprod[timesteps.long()]
+        return ac / (1.0 - ac)
+
+
+def compute_snr(scheduler: DDPMScheduler, timesteps: torch.Tensor) -> torch.Tensor:
+    """Free-function form of ``DDPMScheduler.snr`` (diffusers' name)."""
+    return scheduler.snr(timesteps)

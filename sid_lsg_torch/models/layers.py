@@ -243,13 +243,18 @@ class VAEAttention(Attention):
         return y.transpose(1, 2).reshape(b, c, h, w) + x
 
 
-def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast ``module`` to ``dtype`` in place, keeping GroupNorm / LayerNorm
-    parameters and the VAE mid attention in f32 (the JAX package computes
+def keeps_f32(module: nn.Module) -> bool:
+    """Whether ``module``'s parameters stay f32 at every compute dtype:
+    GroupNorm, LayerNorm and the VAE mid attention (the JAX package computes
     those in f32 whatever the activation dtype)."""
+    return isinstance(module, (GroupNorm, nn.LayerNorm, VAEAttention))
+
+
+def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``module`` to ``dtype`` in place, except where ``keeps_f32``."""
     module.to(dtype)
     for m in module.modules():
-        if isinstance(m, (GroupNorm, nn.LayerNorm, VAEAttention)):
+        if keeps_f32(m):
             m.float()
     return module
 

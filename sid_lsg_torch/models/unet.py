@@ -1,18 +1,35 @@
 """UNet2DCondition in PyTorch (NCHW): the SD denoiser backbone.
 
-Port of ``sid_lsg_tpu/models/unet.py`` (forward only, without remat and
-without ``encoder_only``).  Same topology: conv_in, down levels with
-cross-attention where the config says so, mid resnet/transformer/resnet, the
-mirrored up path with skip concatenation, GN+SiLU head.  Submodules carry the
-diffusers names (``down_blocks.{i}``, ``mid_block``, ``up_blocks.{k}`` with
-k = 0 the deepest level).
+Port of ``sid_lsg_tpu/models/unet.py`` (without ``encoder_only``).  Same
+topology: conv_in, down levels with cross-attention where the config says
+so, mid resnet/transformer/resnet, the mirrored up path with skip
+concatenation, GN+SiLU head.  Submodules carry the diffusers names
+(``down_blocks.{i}``, ``mid_block``, ``up_blocks.{k}`` with k = 0 the
+deepest level).
+
+Rematerialisation (JAX ``remat``/``remat_policy``): with ``remat_policy``
+set, each ``ResnetBlock2D`` and ``Transformer2D`` runs under
+``torch.utils.checkpoint`` (non-reentrant) whenever grad is enabled.
+``full`` keeps only the blocks' inputs; ``flash`` also keeps the outputs
+(out, lse) of the flash-attention op, so the backward sweep recomputes the
+projections but runs no forward attention kernel again.
+
+``unet_apply_fn`` gives the functional form the train step uses:
+``apply(params, x, t, c)`` on a dict of (f32 master) tensors, cast to the
+compute dtype at apply time, as the JAX package applies f32 params through
+a bf16 module.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Dict, Optional
+
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from ..ops.attention import FLASH_OP
 from .configs import UNetConfig
 from .layers import (
     Downsample2D,
@@ -21,13 +38,32 @@ from .layers import (
     TimestepEmbedding,
     Transformer2D,
     Upsample2D,
+    keeps_f32,
     timestep_embedding,
 )
 
+REMAT_POLICIES = ("full", "flash")
+# The JAX package's other policies; the port raises for them (ROADMAP Queue 1 item 2).
+UNPORTED_REMAT_POLICIES = ("dots", "dots_no_batch", "attn", "attn_offload")
+
+
+def _flash_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op is FLASH_OP else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _flash_context():
+    return create_selective_checkpoint_contexts(_flash_policy)
+
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, config: UNetConfig):
+    def __init__(self, config: UNetConfig, remat_policy: Optional[str] = None):
         super().__init__()
+        if remat_policy in UNPORTED_REMAT_POLICIES:
+            raise ValueError(f"remat policy {remat_policy!r} is not ported yet (ROADMAP Queue 1 "
+                             f"item 2); the port has {REMAT_POLICIES}")
+        if remat_policy not in (None,) + REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {remat_policy!r}")
+        self.remat_policy = remat_policy
         cfg = self.config = config
         boc = cfg.block_out_channels
         n = len(boc)
@@ -83,6 +119,25 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps, silu=True)
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
 
+    def _block(self, block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        """Run ``block``, under checkpoint when remat is on and grad is enabled.
+
+        The block's parameters enter the checkpoint as explicit inputs and the
+        recompute rebinds them with ``functional_call``: under
+        ``unet_apply_fn`` they are the apply-time tensors, which are no longer
+        bound to the module when the backward sweep recomputes."""
+        if self.remat_policy is None or not torch.is_grad_enabled():
+            return block(*args)
+        names, params = zip(*block.named_parameters())
+        n = len(args)
+
+        def run(*xs):
+            return functional_call(block, dict(zip(names, xs[n:])), xs[:n])
+
+        context_fn = _flash_context if self.remat_policy == "flash" else None
+        kwargs = {"context_fn": context_fn} if context_fn else {}
+        return checkpoint(run, *args, *params, use_reentrant=False, **kwargs)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         """(B, C_in, H, W) latents, (B,) int timesteps, (B, L, cross_dim) context
@@ -98,24 +153,46 @@ class UNet2DCondition(nn.Module):
         skips = [h]
         for block in self.down_blocks:
             for j, res in enumerate(block["resnets"]):
-                h = res(h, temb)
+                h = self._block(res, h, temb)
                 if len(block["attentions"]):
-                    h = block["attentions"][j](h, context)
+                    h = self._block(block["attentions"][j], h, context)
                 skips.append(h)
             if "downsamplers" in block:
                 h = block["downsamplers"][0](h)
                 skips.append(h)
 
-        h = self.mid_block["resnets"][0](h, temb)
-        h = self.mid_block["attentions"][0](h, context)
-        h = self.mid_block["resnets"][1](h, temb)
+        h = self._block(self.mid_block["resnets"][0], h, temb)
+        h = self._block(self.mid_block["attentions"][0], h, context)
+        h = self._block(self.mid_block["resnets"][1], h, temb)
 
         for block in self.up_blocks:
             for j, res in enumerate(block["resnets"]):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                h = self._block(res, torch.cat([h, skips.pop()], dim=1), temb)
                 if len(block["attentions"]):
-                    h = block["attentions"][j](h, context)
+                    h = self._block(block["attentions"][j], h, context)
             if "upsamplers" in block:
                 h = block["upsamplers"][0](h)
         assert not skips
         return self.conv_out(self.conv_norm_out(h))
+
+
+Params = Dict[str, torch.Tensor]
+UNetApplyP = Callable[[Params, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def unet_apply_fn(config: UNetConfig, dtype: torch.dtype,
+                  remat_policy: Optional[str] = None) -> UNetApplyP:
+    """``apply(params, x, t, c)``: the UNet on a dict of parameter tensors
+    (diffusers keys), each cast to ``dtype`` at apply time except those of
+    the modules that keep f32 (``layers.keeps_f32``).  The module itself
+    holds no weights (meta)."""
+    with torch.device("meta"):
+        skeleton = UNet2DCondition(config, remat_policy=remat_policy)
+    keep = frozenset(f"{name}.{p}" for name, m in skeleton.named_modules() if keeps_f32(m)
+                     for p, _ in m.named_parameters())
+
+    def apply(params: Params, x: torch.Tensor, t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        cast = {k: v if k in keep else v.to(dtype) for k, v in params.items()}
+        return functional_call(skeleton, cast, (x, t, c))
+
+    return apply

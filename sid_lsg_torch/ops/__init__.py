@@ -3,7 +3,16 @@ version.  The tensor's device picks the path: CUDA launches the kernel, CPU
 runs the plain version."""
 
 from . import registry
-from .attention import attention, attention_ref, flash_attn_fwd
+from .attention import (
+    attention,
+    attention_ref,
+    flash_attn_bwd,
+    flash_attn_bwd_dkv,
+    flash_attn_bwd_dq,
+    flash_attn_bwd_ref,
+    flash_attn_bwd_twopass,
+    flash_attn_fwd,
+)
 from .groupnorm import (
     gn_apply,
     gn_apply_ref,
@@ -18,6 +27,11 @@ __all__ = [
     "registry",
     "attention",
     "attention_ref",
+    "flash_attn_bwd",
+    "flash_attn_bwd_dkv",
+    "flash_attn_bwd_dq",
+    "flash_attn_bwd_ref",
+    "flash_attn_bwd_twopass",
     "flash_attn_fwd",
     "gn_apply",
     "gn_apply_ref",

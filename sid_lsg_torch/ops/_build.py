@@ -1,6 +1,6 @@
 """Build, load and dispatch to the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
+``csrc/*.cu`` (with the headers ``csrc/*.cuh``) compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, loaded with ``ctypes``.  The sources compile in
 parallel, one ``nvcc`` each, and link into
 ``sid_lsg_torch/_build/<hash>/libsidlsg_kernels.so``, where the hash covers
@@ -38,6 +38,9 @@ _SIGNATURES = {
     "sidlsg_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "sidlsg_gn_stats": [_P, _P, _P, _P, _I, _L, _I, _L, _F, _I, _P],
     "sidlsg_gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P],
+    "sidlsg_flash_attn_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
+    "sidlsg_flash_attn_bwd_dq": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
+    "sidlsg_flash_attn_bwd_dkv": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -48,9 +51,9 @@ def sources() -> list:
 
 
 def source_key() -> str:
-    """Hash of the kernel sources and the compiler flags."""
+    """Hash of the kernel sources, their headers and the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

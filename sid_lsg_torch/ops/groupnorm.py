@@ -8,6 +8,12 @@ plain version (``gn_stats_ref`` / ``gn_apply_ref``) on a CPU tensor.  The
 plain versions follow ``_group_norm_ref`` step for step: per-channel sums
 first, one-pass moments in f32, the variance clamped at 0, and the group
 statistics folded into a per-channel scale and bias.
+
+``group_norm`` is differentiable: its forward is K2 + K3 and its backward
+recomputes ``group_norm_ref`` and takes that formula's VJP, as the JAX
+package's custom VJP does (``sid_lsg_tpu/ops/groupnorm.py:215-229``); the
+backward is plain PyTorch on every device, as the JAX package leaves it to
+XLA.
 """
 
 from __future__ import annotations
@@ -105,11 +111,31 @@ def gn_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, gamma: tor
     return y
 
 
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps, silu):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.args = (num_groups, eps, silu)
+        mean, rstd = gn_stats(x, num_groups, eps)
+        return gn_apply(x, mean, rstd, gamma, beta, silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip((x, gamma, beta), ctx.needs_input_grad[:3])]
+            y = group_norm_ref(*inputs, *ctx.args)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 3
+
+
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int = 32,
                eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
-    """GroupNorm over (N, C, ...) with optional fused SiLU; K2 + K3 on the card."""
-    mean, rstd = gn_stats(x, num_groups, eps)
-    return gn_apply(x, mean, rstd, gamma, beta, silu)
+    """GroupNorm over (N, C, ...) with optional fused SiLU; K2 + K3 on the
+    card, differentiable (backward: the VJP of ``group_norm_ref``)."""
+    return _GroupNorm.apply(x, gamma, beta, num_groups, eps, silu)
 
 
 def group_norm_silu(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):

@@ -11,7 +11,8 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict, Hashable
 
-KERNELS = ("flash_attn_fwd", "gn_stats", "gn_apply")
+KERNELS = ("flash_attn_fwd", "gn_stats", "gn_apply", "flash_attn_bwd", "flash_attn_bwd_dq",
+           "flash_attn_bwd_dkv")
 
 _launches: Dict[str, Counter] = {name: Counter() for name in KERNELS}
 

@@ -8,7 +8,8 @@ pipeline's dtype on its device, which is the card unless the caller passes
 
 Weights come from a state dict per part (``{'unet', 'vae', 'text'}``, e.g.
 the output of ``models.params_from_jax``) or, with ``state_dicts=None``, are
-drawn from ``seed`` as flax's default initialisers would (``random_init``).
+drawn from ``seed`` as flax's default initialisers would
+(``random_state_dicts``, ``random_init``).
 """
 
 from __future__ import annotations
@@ -27,13 +28,29 @@ from .models.layers import init_weights_, to_compute_dtype
 StateDict = Dict[str, torch.Tensor]
 
 
+def _skeletons(config: SDConfig) -> Dict[str, nn.Module]:
+    with torch.device("meta"):
+        return {"unet": UNet2DCondition(config.unet), "vae": AutoencoderKL(config.vae),
+                "text": CLIPTextModel(config.text)}
+
+
+def random_state_dicts(config: SDConfig, device: Union[str, torch.device] = "cuda",
+                       seed: int = 0) -> Dict[str, StateDict]:
+    """f32 weights of every part drawn from ``seed`` on ``device`` (UNet, then
+    VAE, then text tower, from one generator)."""
+    device = resolve_device(device)
+    generator = torch.Generator(device).manual_seed(seed)
+    out = {}
+    for part, module in _skeletons(config).items():
+        module.to_empty(device=device)
+        out[part] = init_weights_(module, generator).requires_grad_(False).state_dict()
+    return out
+
+
 def _materialise(module: nn.Module, device: torch.device, dtype: torch.dtype,
-                 state_dict: Optional[StateDict], generator: torch.Generator) -> nn.Module:
+                 state_dict: StateDict) -> nn.Module:
     module.to_empty(device=device)
-    if state_dict is None:
-        init_weights_(module, generator)
-    else:
-        module.load_state_dict(state_dict, strict=True)
+    module.load_state_dict(state_dict, strict=True)
     return to_compute_dtype(module, dtype).eval().requires_grad_(False)
 
 
@@ -48,17 +65,13 @@ class SDPipeline:
         self.tokenizer = tokenizer or HashTokenizer(vocab_size=config.text.vocab_size)
         self.scheduler = DDPMScheduler(SchedulerConfig.sd(prediction_type or config.prediction_type),
                                        device=self.device)
-        generator = torch.Generator(self.device).manual_seed(seed)
-        sds = state_dicts or {}
-        if state_dicts is not None and set(state_dicts) != {"unet", "vae", "text"}:
+        if state_dicts is None:
+            state_dicts = random_state_dicts(config, self.device, seed)
+        if set(state_dicts) != {"unet", "vae", "text"}:
             raise KeyError(f"state_dicts needs 'unet', 'vae' and 'text', got {sorted(state_dicts)}")
-        with torch.device("meta"):
-            unet = UNet2DCondition(config.unet)
-            vae = AutoencoderKL(config.vae)
-            text = CLIPTextModel(config.text)
-        self.unet = _materialise(unet, self.device, dtype, sds.get("unet"), generator)
-        self.vae = _materialise(vae, self.device, dtype, sds.get("vae"), generator)
-        self.text_model = _materialise(text, self.device, dtype, sds.get("text"), generator)
+        parts = {part: _materialise(module, self.device, dtype, state_dicts[part])
+                 for part, module in _skeletons(config).items()}
+        self.unet, self.vae, self.text_model = parts["unet"], parts["vae"], parts["text"]
         self._uncond: Optional[torch.Tensor] = None
 
     @classmethod
@@ -67,9 +80,13 @@ class SDPipeline:
         """A preset (``tiny`` / ``sd15`` / ``sd21base``) with weights drawn from ``seed``."""
         return cls(resolve(preset), None, dtype=dtype, device=device, seed=seed)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
-        """(B, 77, D) final-hidden-state embeddings of the frozen text tower."""
+        """(B, 77, D) final-hidden-state embeddings of the frozen text tower.
+
+        Not under inference mode: the train step's cross-attention saves the
+        embeddings for its weight gradients, which an inference tensor
+        refuses."""
         ids = torch.as_tensor(self.tokenizer(list(prompts)), dtype=torch.long, device=self.device)
         return self.text_model(ids)
 

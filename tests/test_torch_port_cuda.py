@@ -1,5 +1,7 @@
 """The port's CUDA kernels (K1 flash attention forward, K2 GroupNorm stats,
-K3 GroupNorm apply) against their plain PyTorch versions, on the card.
+K3 GroupNorm apply, K4 fused flash backward, K5 + K6 two-pass flash
+backward) against their plain PyTorch versions, and UNet gradients through
+them against the CPU's, on the card.
 
 Needs a CUDA device, ``nvcc`` and no JAX; skips where torch finds no card.
 On the card's machine run it without the JAX-importing conftest:
@@ -13,7 +15,12 @@ rounding the output alone moves it by up to 2**-8 relative), and every
 output within 1e-2 of its plain version in relative L2 norm.  Attention's v
 is scaled by sqrt(S_k / e) so that its outputs are of order 1: with
 unit-normal q, k, v a typical |out| is sqrt(e / S_k), as small as the bf16
-atol at S_k = 4096.  TF32 is off.
+atol at S_k = 4096.  The backward's outputs are linear in dO, and dq, dk and
+dv differ in size by orders of magnitude, so each is compared after scaling
+by the power of two that brings its plain version to RMS of about 1: the
+same as scaling dO by that power, which bf16 represents exactly.  UNet
+gradients on the tiny preset in f32: rtol 1e-3 with atol 1e-4 * max|ref|
+per tensor (``tests/test_composed_step_gate.py``).  TF32 is off.
 """
 
 import math
@@ -22,6 +29,9 @@ import pytest
 import torch
 
 from sid_lsg_torch import ops
+from sid_lsg_torch.models import TINY
+from sid_lsg_torch.models.unet import unet_apply_fn
+from sid_lsg_torch.pipeline import random_state_dicts
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +109,98 @@ def test_group_norm_kernels_match_plain(dev, dtype, shape, groups, silu):
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == x.shape
     assert_close(y, ref, dtype)
+
+
+def pow2_scale(ref):
+    """The power of two that brings ``ref`` to RMS of about 1."""
+    rms = ref.float().square().mean().sqrt().item()
+    return 2.0 ** round(-math.log2(max(rms, 1e-30)))
+
+
+def bwd_case(dev, dtype, b, h, sq, sk, d, seed=2):
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, h, sk, d, generator=g, device=dev).to(dtype)
+    v = (torch.randn(b, h, sk, d, generator=g, device=dev) * math.sqrt(sk / math.e)).to(dtype)
+    dout = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    out, lse = ops.attention_ref(q.float(), k.float(), v.float())
+    out = out.to(dtype)
+    ref = ops.flash_attn_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+                                 d ** -0.5)
+    return (q, k, v, out, lse, dout), ref
+
+
+BWD_SHAPES = [
+    (torch.bfloat16, 1, 8, 1024, 1024, 40),
+    (torch.bfloat16, 2, 8, 256, 77, 80),
+    (torch.bfloat16, 1, 8, 256, 256, 160),
+    (torch.bfloat16, 2, 8, 64, 77, 160),
+    (torch.bfloat16, 1, 2, 100, 77, 36),
+    (torch.bfloat16, 2, 5, 300, 300, 64),
+    (torch.float32, 2, 2, 64, 64, 16),
+    (torch.float32, 2, 3, 200, 77, 40),
+    (torch.float32, 1, 2, 50, 90, 160),
+]
+
+
+@pytest.mark.parametrize("fn", ["flash_attn_bwd", "flash_attn_bwd_twopass"])
+@pytest.mark.parametrize("dtype,b,h,sq,sk,d", BWD_SHAPES)
+def test_flash_attn_bwd_matches_plain(dev, fn, dtype, b, h, sq, sk, d):
+    args, ref = bwd_case(dev, dtype, b, h, sq, sk, d)
+    names = ["flash_attn_bwd"] if fn == "flash_attn_bwd" else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
+    before = {n: ops.registry.counts()[n] for n in names}
+    got = getattr(ops, fn)(*args, d ** -0.5)
+    torch.cuda.synchronize()
+    assert all(ops.registry.counts()[n] == before[n] + 1 for n in names)
+    for gx, rx in zip(got, ref):
+        assert gx.dtype == dtype and gx.shape == rx.shape
+        c = pow2_scale(rx)
+        assert_close(gx.float() * c, rx * c, dtype)
+
+
+def test_flash_attn_bwd_twopass_is_deterministic_and_agrees_with_fused(dev):
+    args, _ = bwd_case(dev, torch.bfloat16, 2, 8, 1024, 1024, 40)
+    a = ops.flash_attn_bwd_twopass(*args, 40 ** -0.5)
+    b = ops.flash_attn_bwd_twopass(*args, 40 ** -0.5)
+    fused = ops.flash_attn_bwd(*args, 40 ** -0.5)
+    for x, y, z in zip(a, b, fused):
+        assert torch.equal(x, y)
+        c = pow2_scale(x)
+        assert_close(z.float() * c, x.float() * c, torch.bfloat16)
+
+
+def test_flash_attn_bwd_rejects_what_it_does_not_take(dev):
+    args, _ = bwd_case(dev, torch.float32, 1, 1, 16, 16, 192)
+    with pytest.raises(ValueError):
+        ops.flash_attn_bwd(*args, 0.1)
+    with pytest.raises(ValueError):
+        ops.flash_attn_bwd_twopass(*args, 0.1)
+
+
+def test_unet_gradients_on_the_card_match_the_cpu(dev):
+    """Autograd through K1/K4 and K2+K3 (backward: the plain formula's VJP):
+    every parameter's and the input's gradient of a scalar loss of the tiny
+    UNet, f32, card against CPU."""
+    params = random_state_dicts(TINY, "cpu", seed=3)["unet"]
+    rng = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 4, 8, 8, generator=rng)
+    t = torch.tensor([37, 625])
+    ctx = torch.randn(2, 77, TINY.unet.cross_attention_dim, generator=rng)
+    weight = torch.randn(2, 4, 8, 8, generator=rng)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device).requires_grad_() for k, v in params.items()}
+        xi = x.to(device).requires_grad_()
+        apply = unet_apply_fn(TINY.unet, torch.float32)
+        ops.registry.reset()
+        loss = (apply(p, xi, t.to(device), ctx.to(device)) * weight.to(device)).sum()
+        g = torch.autograd.grad(loss, [xi] + list(p.values()))
+        grads[device] = [y.cpu() for y in g]
+        if device == "cuda":
+            counts = ops.registry.counts()
+            for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_stats", "gn_apply"):
+                assert counts[name] > 0, counts
+    names = ["x"] + list(params)
+    for name, a, b in zip(names, grads["cuda"], grads["cpu"]):
+        scale = max(float(b.abs().max()), 1e-8)
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * scale, msg=name)
