@@ -5,10 +5,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's two paths at full SD1.5 width on random weights from a
-seed, through the CUDA kernels built from ``sid_lsg_torch/csrc``: one-step
-text-to-image generation (batch 4, 512x512, init_timestep 625; phases 2-6)
-and the SiD-LSG distillation train step (phases 7-11).
+It drives the port's three paths at full SD1.5 width on random weights from
+a seed, through the CUDA kernels built from ``sid_lsg_torch/csrc``: one-step
+text-to-image generation (batch 4, 512x512, init_timestep 625; phases 2-6),
+the SiD-LSG distillation train step (phases 7-11) and the SiDA adversarial
+train step (phases 12-16).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time and
    the card's name and power limit.
@@ -63,6 +64,34 @@ and the SiD-LSG distillation train step (phases 7-11).
    replaced K4), beside bound, plain version and SDPA's backward (forward +
    backward minus forward).
 
+12. SiDA step: a ``Trainer`` from ``SIDA_ARGS`` (``TRAIN_ARGS`` plus the
+   adversarial weights 0.1, the ``dino`` tower with a random DINO ViT-S/16,
+   synthetic real latents); counters zeroed, one step (the SiDA path's main
+   run): the six losses and logits finite, G, psi, the judge's heads, the
+   EMA and every spectral ``u`` changed, K1-K4 and K7 launched, K4 at the
+   VAE's f32 (mb, 1, 4096, 512) and the DINO's f32 (mb, 6, 197, 64).  Then
+   (after phase 15) one step of the ``encoder`` tower: losses finite, K1-K4
+   launched.
+13. Kernel check of the SiDA path, as phases 3 and 8: K7 against
+   ``bias_act_ref`` at every shape the step gave it, in the path's
+   activation and in all nine with gain 1.3 and clamp 5, plus one
+   (8, 512, 32, 32) bias-on-axis-1 shape in f32 and bf16 that is off the
+   path; K4, K5 and K6 at the step's new f32 shapes, within the f32
+   tolerance (atol 1e-4 / rtol 1e-3 after phase 8's scaling); K1-K3 at its
+   new shapes.
+14. Small reference for SiDA: the tiny preset with TINY_VIT, f32, each
+   tower, card against CPU from the same weights and CPU-generator draws:
+   losses within rtol 1e-4, the psi-phase (psi and heads) and theta-phase
+   gradients within phase 9's tolerances; K4 and (dino) K7 launched on the
+   card.  The conv biases in front of a BatchNormLocal have an exact
+   gradient of 0 (the normalisation removes a per-channel constant): both
+   sides are required below 1e-6 of the largest head gradient instead.
+15. SiDA step timing: median seconds over 5 steps, images/s, peak device
+   memory, one traced step; printed beside phase 10's.
+16. SiDA kernel timing, summed over one step: K7 beside its bound, plain
+   version and ``torch.add``; K4 (and K5 + K6) at the new f32 shapes beside
+   bound, plain version and SDPA's backward, with the SDPA backend named.
+
 Any failure raises and exits non-zero.  The last line is the result object.
 """
 
@@ -98,6 +127,7 @@ SOURCES = {
                           "sid_lsg_tpu/ops/attention.py:326"),
     "flash_attn_bwd_dkv": ("sid_lsg_torch/csrc/flash_attn_bwd_twopass.cu",
                            "sid_lsg_tpu/ops/attention.py:378"),
+    "bias_act": ("sid_lsg_torch/csrc/bias_act.cu", "sid_lsg_tpu/ops/bias_act.py:92"),
 }
 SERVING_KERNELS = ("flash_attn_fwd", "gn_stats", "gn_apply")
 BWD_KERNELS = ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
@@ -110,6 +140,11 @@ TRAIN_ARGS = ["--outdir", "chiprun_out/train", "--sd_model", "sd15", "--batch", 
               "--remat-policy", "flash", "--max-ticks", "1"]
 TRAIN_BATCH = 4
 TIMED_STEPS = 5
+# The SiDA path: the train step above with the adversarial terms through the
+# projected DINO ViT-S/16 pixel judge (random backbone, synthetic real latents).
+SIDA_ARGS = TRAIN_ARGS + ["--adv_weight_d", "0.1", "--adv_weight_g", "0.1", "--adv_tower", "dino",
+                          "--adv_vit", "s16"]
+SIDA_BATCH = TRAIN_BATCH
 TOL_LOSS = 1e-4  # phase 9: relative, losses
 TOL_GRAD = 1e-3  # phase 9: relative, and 1e-4 * max|ref| absolute, per gradient tensor
 
@@ -357,48 +392,130 @@ class K1Sweep:
         self._module.flash_attn_fwd = self._fwd
 
 
-def tiny_train_grads(device):
-    """Phase 9 on one device: psi-phase and theta-phase losses and gradients
-    of the tiny preset in f32 from fixed weights and CPU-generator draws."""
+STRUCTURAL_ZERO = ("main0.conv.bias", "main1.conv.bias")
+
+
+def tiny_train_grads(device, tower=None):
+    """Phases 9 and 14 on one device: the tiny preset's psi-phase and
+    theta-phase losses and gradients in f32 from fixed weights and
+    CPU-generator draws; with ``tower``, the adversarial terms of that tower
+    (the pixel judge on TINY_VIT) and its heads among the psi-phase tensors."""
     import torch
 
     from sid_lsg_torch.diffusion.ddpm import DDPMScheduler, SchedulerConfig
-    from sid_lsg_torch.models import TINY
+    from sid_lsg_torch.models import TINY, AutoencoderKL
+    from sid_lsg_torch.models.stylegan_discriminator import (
+        TINY_VIT,
+        ProjectedDiscriminator,
+        head_params,
+        init_disc_weights_,
+    )
     from sid_lsg_torch.models.unet import unet_apply_fn
     from sid_lsg_torch.pipeline import random_state_dicts
-    from sid_lsg_torch.training.distill import DistillConfig, make_loss_fns
+    from sid_lsg_torch.training.adversarial import make_pixel_disc
+    from sid_lsg_torch.training.distill import DISC_PREFIX, DistillConfig, make_loss_fns
 
-    teacher = random_state_dicts(TINY, "cpu", seed=0)["unet"]
+    sds = random_state_dicts(TINY, "cpu", seed=0)
+    teacher = sds["unet"]
     wgen = torch.Generator().manual_seed(1)
     fake = {k: v + 0.02 * torch.randn(v.shape, generator=wgen) for k, v in teacher.items()}
     g = {k: v + 0.02 * torch.randn(v.shape, generator=wgen) for k, v in teacher.items()}
     on = lambda tree, grad: {k: v.to(device).requires_grad_(grad) for k, v in tree.items()}
+    dim = TINY.unet.cross_attention_dim
+    adv = dict(adv_weight_D=0.1, adv_weight_G=0.1, adv_tower=tower) if tower else {}
     cfg = DistillConfig(latent_size=TINY.unet.sample_size, latent_channels=TINY.unet.in_channels,
                         cfg_train_fake=1.5, cfg_eval_fake=1.5, cfg_eval_real=1.5,
-                        dtype=torch.float32)
+                        dtype=torch.float32, **adv)
+    pixel, heads = None, {}
+    if tower == "dino":
+        vae = AutoencoderKL(TINY.vae)
+        vae.load_state_dict(sds["vae"])
+        disc = ProjectedDiscriminator(dim, TINY_VIT, power_iters=3)
+        init_disc_weights_(disc, torch.Generator().manual_seed(3))
+        pixel = make_pixel_disc(vae.to(device).requires_grad_(False),
+                                disc.to(device).requires_grad_(False), TINY.vae.scaling_factor)
+        heads = {DISC_PREFIX + k: v.detach().clone() for k, v in head_params(disc).items()}
+    encode = unet_apply_fn(TINY.unet, torch.float32, encoder_only=True) if tower == "encoder" else None
     sched = DDPMScheduler(SchedulerConfig.sd(TINY.prediction_type), device=device)
-    L = make_loss_fns(unet_apply_fn(TINY.unet, torch.float32), sched, cfg)
+    L = make_loss_fns(unet_apply_fn(TINY.unet, torch.float32), sched, cfg, unet_encode=encode,
+                      pixel_disc=pixel)
     draws = torch.Generator().manual_seed(5)
-    mb, dim = 2, TINY.unet.cross_attention_dim
+    mb = 2
     z, noise, t, init_t = L.draw(draws, mb, device)
     emb = (torch.randn(mb, 77, dim, generator=draws) * 0.5).to(device)
     unc = (torch.randn(77, dim, generator=draws) * 0.5).to(device).expand(mb, 77, dim)
+    adv_psi = adv_g = None
+    if tower:
+        adv_psi = {"lat_real": torch.randn(mb, 4, 8, 8, generator=draws).to(device),
+                   "emb_real": (torch.randn(mb, 77, dim, generator=draws) * 0.5).to(device),
+                   **L.draw_adv_psi(draws, mb, device)}
+        adv_g = L.draw_adv_g(draws, mb)
     with torch.no_grad():
         images = L.generate(on(g, False), z, emb, init_t)
-    pf = on(fake, True)
-    loss_f, _ = L.psi_loss(pf, on(teacher, False), images, noise, emb, unc, t, float(mb))
+    pf = {**on(fake, True), **on(heads, True)}
+    loss_f, aux_f = L.psi_loss(pf, on(teacher, False), images, noise, emb, unc, t, float(mb), adv_psi)
     grads_f = torch.autograd.grad(loss_f, list(pf.values()))
     pg = on(g, True)
-    loss_g, _ = L.g_loss(pg, on(fake, False), on(teacher, False), z, noise, emb, unc, t, init_t,
-                         float(mb))
+    loss_g, aux_g = L.g_loss(pg, {k: v.detach() for k, v in pf.items()}, on(teacher, False), z,
+                             noise, emb, unc, t, init_t, float(mb), None, adv_g)
     grads_g = torch.autograd.grad(loss_g, list(pg.values()))
-    return ((float(loss_f.detach()), float(loss_g.detach())),
-            {"psi": dict(zip(pf, (x.cpu() for x in grads_f))),
-             "theta": dict(zip(pg, (x.cpu() for x in grads_g)))})
+    losses = {"psi": float(loss_f.detach()), "theta": float(loss_g.detach())}
+    if tower:
+        losses.update(adv_d_loss=float(aux_f["adv_d_loss"]), adv_g_loss=float(aux_g["adv_g_loss"]))
+    return losses, {"psi": dict(zip(pf, (x.cpu() for x in grads_f))),
+                    "theta": dict(zip(pg, (x.cpu() for x in grads_g)))}
 
 
-def train_phases(card: str, gen, serving_keys) -> list:
-    """Phases 7-11; returns the kernels-line entries of K4, K5 and K6."""
+def compare_tiny(label, card, cpu) -> None:
+    """Phase 9's rule on the outputs of ``tiny_train_grads`` on the card and
+    on the CPU: each loss within TOL_LOSS, each gradient tensor within
+    TOL_GRAD and 1e-4 * max|ref|; the structurally zero conv biases of the
+    judge's heads below 1e-6 of the largest head gradient on both sides."""
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = card, cpu
+    for k, b in loss_cpu.items():
+        require(abs(loss_card[k] - b) <= TOL_LOSS * abs(b), f"{label}: {k} {loss_card[k]} vs {b}")
+    for phase, cpu_grads in grads_cpu.items():
+        heads_max = max([float(v.abs().max()) for k, v in cpu_grads.items()
+                         if k.startswith("disc.")] or [0.0])
+        worst = 0.0
+        for k, ref in cpu_grads.items():
+            got = grads_card[phase][k]
+            if k.endswith(STRUCTURAL_ZERO):
+                for side, v in (("card", got), ("CPU", ref)):
+                    require(float(v.abs().max()) <= 1e-6 * heads_max,
+                            f"{label}: {side} gradient of {k} not ~0 ({float(v.abs().max()):.3e})")
+                continue
+            atol = 1e-4 * max(float(ref.abs().max()), 1e-8)
+            ratio = float(((got - ref).abs() / (atol + TOL_GRAD * ref.abs())).max())
+            worst = max(worst, ratio)
+            require(ratio <= 1.0, f"{label}: {phase} gradient of {k} err/tol {ratio:.3f}")
+        print(f"[{label}] {phase}: {len(cpu_grads)} gradient tensors, max err/tol {worst:.3f} "
+              f"(rtol {TOL_GRAD}, atol 1e-4 max|ref|)")
+
+
+def check_bwd(key, gen, max_abs):
+    """K4, K5 and K6 against the plain backward at one shape K4 was launched
+    at, and K4 against K5 + K6, at the tolerance of the shape's dtype (each
+    output scaled as phase 8 says); raises ``max_abs`` per kernel to its
+    largest error; returns ``bwd_cases(key, gen)``."""
+    import torch
+
+    cases, plain, sdpa = bwd_cases(key, gen)
+    tol = TOL_F32 if key[2] == "torch.float32" else TOL_BF16
+    outs = {}
+    for name, (kern, ref, _, _) in cases.items():
+        outs[name] = kern()
+        torch.cuda.synchronize()
+        max_abs[name] = max(max_abs.get(name, 0.0),
+                            check_outputs(f"{name} {key}", outs[name], ref, tol, scale_each=True))
+    check_outputs(f"flash_attn_bwd vs two-pass {key}", outs["flash_attn_bwd"],
+                  outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"], tol, scale_each=True)
+    return cases, plain, sdpa
+
+
+def train_phases(card: str, gen, serving_keys):
+    """Phases 7-11; returns the kernels-line entries of K4, K5 and K6, the
+    step's launch keys and phase 10's numbers."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -462,42 +579,22 @@ def train_phases(card: str, gen, serving_keys) -> list:
 
     # 8. Kernel check at the step's shapes.
     max_abs = {name: 0.0 for name in BWD_KERNELS}
-    bwd = {}
-    for key in sorted(train_keys["flash_attn_bwd"], key=str):
-        cases, plain, sdpa = bwd_cases(key, gen)
-        outs = {}
-        for name, (kern, ref, _, _) in cases.items():
-            outs[name] = kern()
-            torch.cuda.synchronize()
-            max_abs[name] = max(max_abs[name], check_outputs(f"{name} {key}", outs[name], ref,
-                                                             TOL_BF16, scale_each=True))
-        twopass = outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"]
-        check_outputs(f"flash_attn_bwd vs two-pass {key}", outs["flash_attn_bwd"], twopass,
-                      TOL_BF16, scale_each=True)
-        bwd[key] = (cases, plain, sdpa)
+    bwd = {key: check_bwd(key, gen, max_abs)
+           for key in sorted(train_keys["flash_attn_bwd"], key=str)}
     for name in SERVING_KERNELS:
         for key in sorted(set(train_keys[name]) - set(serving_keys[name]), key=str):
             check_forward_kernel(name, key, gen)
 
     # 9. Small reference for training: tiny, f32, card vs CPU.
     registry.reset()
-    (loss_card, grads_card), (loss_cpu, grads_cpu) = tiny_train_grads("cuda"), tiny_train_grads("cpu")
+    tiny_card = tiny_train_grads("cuda")
     tiny_launches = registry.counts()
-    print(f"[tiny-train] losses card {loss_card}, CPU {loss_cpu}; card launches {tiny_launches}")
+    tiny_cpu = tiny_train_grads("cpu")
+    print(f"[tiny-train] losses card {tiny_card[0]}, CPU {tiny_cpu[0]}; card launches "
+          f"{tiny_launches}")
     for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_stats", "gn_apply"):
         require(tiny_launches[name] > 0, f"tiny train: {name} not launched on the card")
-    for a, b in zip(loss_card, loss_cpu):
-        require(abs(a - b) <= TOL_LOSS * abs(b), f"tiny train: losses {loss_card} vs {loss_cpu}")
-    for phase in ("psi", "theta"):
-        worst = 0.0
-        for k, ref in grads_cpu[phase].items():
-            atol = 1e-4 * max(float(ref.abs().max()), 1e-8)
-            err = (grads_card[phase][k] - ref).abs()
-            ratio = float((err / (atol + TOL_GRAD * ref.abs())).max())
-            worst = max(worst, ratio)
-            require(ratio <= 1.0, f"tiny train: {phase} gradient of {k} err/tol {ratio:.3f}")
-        print(f"[tiny-train] {phase}: {len(grads_cpu[phase])} gradient tensors, max err/tol "
-              f"{worst:.3f} (rtol {TOL_GRAD}, atol 1e-4 max|ref|)")
+    compare_tiny("tiny-train", tiny_card, tiny_cpu)
 
     # 10. Train-step timing, trace, FLOPs.
     torch.cuda.reset_peak_memory_stats()
@@ -524,6 +621,8 @@ def train_phases(card: str, gen, serving_keys) -> list:
           f"{total:.6e}; mfu {total / med / PEAK_FLOPS['torch.bfloat16']:.4f} (over 989 TFLOP/s "
           f"at the median step time)")
     del trainer
+    torch.cuda.empty_cache()
+    phase10 = {"median_s": med, "images_per_s": TRAIN_BATCH / med, "peak_gib": peak_gib}
 
     # 11. Backward kernel timing at the step's shapes, summed over one step.
     entries = []
@@ -556,7 +655,207 @@ def train_phases(card: str, gen, serving_keys) -> list:
     print(f"[time] per train step: K4 {rows['flash_attn_bwd']['ms']:.4f} ms, K5 + K6 "
           f"{rows['flash_attn_bwd_dq']['ms'] + rows['flash_attn_bwd_dkv']['ms']:.4f} ms, SDPA "
           f"backward {rows['flash_attn_bwd']['library_ms']:.4f} ms")
-    return entries
+    return entries, train_keys, phase10
+
+def fingerprints(tree) -> "torch.Tensor":
+    """Per tensor of ``tree``: (sum, sum of squares) in f64, on the host."""
+    import torch
+
+    with torch.no_grad():
+        return torch.stack([torch.stack([v.double().sum(), v.double().square().sum()])
+                            for v in tree.values()]).cpu()
+
+
+def bias_act_case(key, gen, act=None, gain=None, clamp=None):
+    """K7 at one recorded launch key (or that shape with another activation,
+    gain and clamp): (kernel fn, plain fn, library fn or None, tolerance,
+    (bytes, operations, type))."""
+    import torch
+
+    from sid_lsg_torch import ops
+
+    shape, dt, dim, path_act, has_bias, alpha, path_gain, path_clamp = key
+    if act is None:
+        act, gain, clamp = path_act, path_gain, path_clamp
+    else:
+        alpha = None
+    dtype = getattr(torch, dt.split(".")[1])
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dtype)
+    b = torch.randn(shape[dim], generator=gen, device="cuda").to(dtype) if has_bias else None
+    bview = None if b is None else b.view([-1 if i == dim else 1 for i in range(len(shape))])
+    n, es = x.numel(), x.element_size()
+    work = (2 * n * es + (0 if b is None else b.numel() * es), 4 * n, "torch.float32")
+    lib = (lambda: torch.add(x, bview)) if act == "linear" and b is not None else None
+    return (lambda: ops.bias_act_fwd(x, b, dim, act, alpha, gain, clamp),
+            lambda: ops.bias_act_ref(x.float(), None if b is None else b.float(), dim, act, alpha,
+                                     gain, clamp),
+            lib, TOL_BF16 if dtype == torch.bfloat16 else TOL_F32, work)
+
+
+def check_bias_act(key, gen, label, **kw) -> float:
+    import torch
+
+    kern, plain, _, tol, _ = bias_act_case(key, gen, **kw)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    return check_outputs(f"bias_act {label} {key} {kw}", (got,), (ref,), tol)
+
+
+def sida_phases(card: str, gen, checked, phase10) -> dict:
+    """Phases 12-16; returns the kernels-line entry of K7."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from sid_lsg_torch import ops
+    from sid_lsg_torch.cli import sid_train
+    from sid_lsg_torch.models.stylegan_discriminator import spectral_buffers
+    from sid_lsg_torch.ops import registry
+    from sid_lsg_torch.training.loop import Trainer
+
+    # 12. SiDA step at full width (dino tower), counters zeroed.
+    t0 = time.perf_counter()
+    trainer = Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(SIDA_ARGS)))
+    torch.cuda.synchronize()
+    print(f"[sida] Trainer (sd15, mb {SIDA_BATCH}, dino ViT-S/16 random, synthetic real latents) "
+          f"built in {time.perf_counter() - t0:.3f} s")
+    st = trainer.state
+    psi = {k: v for k, v in st.params_fake.items() if not k.startswith("disc.")}
+    heads = {k: v for k, v in st.params_fake.items() if k.startswith("disc.")}
+    parts = {"params_G": st.params_G, "psi": psi, "disc heads": heads, "ema": st.ema}
+    before = {name: fingerprints(tree) for name, tree in parts.items()}
+    u_before = {k: v.clone() for k, v in spectral_buffers(trainer.disc).items()}
+    registry.reset()
+    t0 = time.perf_counter()
+    metrics = trainer.step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = registry.counts()
+    sida_keys = {name: registry.launches_by_key(name) for name in registry.KERNELS}
+    names = ("fake_score_loss", "g_loss", "adv_d_loss", "adv_g_loss", "d_logit_real", "d_logit_fake")
+    vals = {k: float(metrics[k]) for k in names}
+    print(f"[sida] main step in {first_s:.3f} s: {vals}, launches {launches}")
+    require(all(math.isfinite(x) for x in vals.values()), f"SiDA losses not finite: {vals}")
+    for name in ("flash_attn_fwd", "gn_stats", "gn_apply", "flash_attn_bwd", "bias_act"):
+        require(launches[name] > 0, f"{name} was not launched by the SiDA step")
+    for want in (((SIDA_BATCH, 1, 4096, 512),) * 2 + ("torch.float32",),
+                 ((SIDA_BATCH, 6, 197, 64),) * 2 + ("torch.float32",)):
+        require(sida_keys["flash_attn_bwd"][want] > 0, f"K4 was not launched at {want}")
+    st = trainer.state
+    after = {"params_G": st.params_G, "ema": st.ema,
+             "psi": {k: v for k, v in st.params_fake.items() if not k.startswith("disc.")},
+             "disc heads": {k: v for k, v in st.params_fake.items() if k.startswith("disc.")}}
+    for name, old in before.items():
+        new = fingerprints(after[name])
+        changed = int((new != old).any(dim=1).sum())
+        print(f"[sida] {name}: {changed} of {len(old)} tensors changed")
+        require(changed >= 0.99 * len(old), f"{name}: only {changed} of {len(old)} tensors changed")
+    u_changed = sum(not torch.equal(v, u_before[k]) for k, v in spectral_buffers(trainer.disc).items())
+    print(f"[sida] spectral u: {u_changed} of {len(u_before)} changed")
+    require(u_changed == len(u_before), "not every spectral u was refreshed")
+
+    # 15. SiDA step timing and trace (the dino trainer), beside phase 10.
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[sida-time] seconds per SiDA step (SD1.5, batch {SIDA_BATCH}, kappa 1.5, bf16, remat "
+          f"flash, dino ViT-S/16): {step_s}, median {med}, {SIDA_BATCH / med} images/s, peak device "
+          f"memory {peak_gib:.3f} GiB; phase 10's step: median {phase10['median_s']}, "
+          f"{phase10['images_per_s']} images/s, peak {phase10['peak_gib']:.3f} GiB; on {card}")
+    trace("one SiDA step", trainer.step, top=20, host_top=15)
+    del trainer, st, parts, psi, heads, after
+    torch.cuda.empty_cache()
+
+    # 12 (second half). One step of the encoder tower.
+    enc_args = [a if a != "dino" else "encoder" for a in SIDA_ARGS]
+    trainer = Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(enc_args)))
+    registry.reset()
+    t0 = time.perf_counter()
+    metrics = trainer.step()
+    torch.cuda.synchronize()
+    enc_launches = registry.counts()
+    vals = {k: float(metrics[k]) for k in names}
+    print(f"[sida] encoder tower step in {time.perf_counter() - t0:.3f} s: {vals}, launches "
+          f"{enc_launches}")
+    require(all(math.isfinite(x) for x in vals.values()), f"encoder-tower losses not finite: {vals}")
+    for name in ("flash_attn_fwd", "gn_stats", "gn_apply", "flash_attn_bwd"):
+        require(enc_launches[name] > 0, f"{name} was not launched by the encoder-tower step")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 13. Kernel check at the SiDA step's shapes.
+    max_abs = 0.0
+    for key in sorted(sida_keys["bias_act"], key=str):
+        max_abs = max(max_abs, check_bias_act(key, gen, "path"))
+        for act in ops.activation_funcs:
+            check_bias_act(key, gen, "path shape", act=act, gain=1.3, clamp=5.0)
+    for dt in ("torch.float32", "torch.bfloat16"):
+        off = ((8, 512, 32, 32), dt, 1, "linear", True, 0.0, 1.0, -1.0)
+        for act in ops.activation_funcs:
+            check_bias_act(off, gen, "off the path", act=act, gain=1.3, clamp=5.0)
+    new_bwd = sorted(set(sida_keys["flash_attn_bwd"]) - checked["flash_attn_bwd"], key=str)
+    bwd = {key: check_bwd(key, gen, {}) for key in new_bwd}
+    for name in SERVING_KERNELS:
+        for key in sorted(set(sida_keys[name]) - checked[name], key=str):
+            check_forward_kernel(name, key, gen)
+
+    # 14. Small reference for SiDA: tiny + TINY_VIT, card vs CPU, both towers.
+    for tower in ("encoder", "dino"):
+        registry.reset()
+        tiny_card = tiny_train_grads("cuda", tower)
+        tiny = registry.counts()
+        tiny_cpu = tiny_train_grads("cpu", tower)
+        print(f"[tiny-sida] {tower}: losses card {tiny_card[0]}, CPU {tiny_cpu[0]}; card launches "
+              f"{tiny}")
+        for name in ("flash_attn_bwd",) + (("bias_act",) if tower == "dino" else ()):
+            require(tiny[name] > 0, f"tiny SiDA {tower}: {name} not launched on the card")
+        compare_tiny(f"tiny-sida {tower}", tiny_card, tiny_cpu)
+
+    # 16. SiDA kernel timing, summed over one step.
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+           "library_ms": 0.0}
+    for key, n in sorted(sida_keys["bias_act"].items(), key=lambda kv: str(kv[0])):
+        kern, plain, lib, _, (nbytes, flops, op_type) = bias_act_case(key, gen)
+        ops_ms, bytes_ms = flops / PEAK_FLOPS[op_type] * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": max(ops_ms, bytes_ms),
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms, "library_ms": time_ms(lib) if lib else 0.0}
+        for f in tot:
+            tot[f] += n * row[f]
+        print(f"[time] bias_act {key} x{n}: {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bound "
+              f"{row['bound_ms']:.7f}, torch.add {row['library_ms']:.5f}")
+    print(f"[time] per SiDA step: K7 {tot['ms']:.5f} ms, plain {tot['plain_ms']:.5f}, bound "
+          f"{tot['bound_ms']:.7f}, torch.add {tot['library_ms']:.5f}")
+    k4 = {"ms": 0.0, "twopass_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "sdpa_ms": 0.0}
+    for key, (cases, plain, (sdpa_fwd, sdpa_both)) in bwd.items():
+        n = sida_keys["flash_attn_bwd"][key]
+        kern, _, nbytes, flops = cases["flash_attn_bwd"]
+        ops_ms, bytes_ms = flops / PEAK_FLOPS[key[2]] * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        twopass_ms = time_ms(cases["flash_attn_bwd_dq"][0]) + time_ms(cases["flash_attn_bwd_dkv"][0])
+        sdpa_ms = time_ms(sdpa_both) - time_ms(sdpa_fwd)
+        q = torch.empty(key[0], device="cuda", dtype=getattr(torch, key[2].split(".")[1]))
+        backend = SDPBackend(torch._fused_sdp_choice(q, q, q)).name
+        for f, x in (("ms", ms), ("twopass_ms", twopass_ms), ("bound_ms", max(ops_ms, bytes_ms)),
+                     ("plain_ms", plain_ms), ("sdpa_ms", sdpa_ms)):
+            k4[f] += n * x
+        print(f"[time] flash_attn_bwd {key} x{n}: {ms:.4f} ms, K5 + K6 {twopass_ms:.4f}, plain "
+              f"{plain_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f} "
+              f"({'operations' if ops_ms > bytes_ms else 'bytes'}), SDPA backward {sdpa_ms:.4f} "
+              f"({backend})")
+    print(f"[time] per SiDA step at the new f32 shapes: K4 {k4['ms']:.4f} ms, K5 + K6 "
+          f"{k4['twopass_ms']:.4f}, bound {k4['bound_ms']:.4f}, plain {k4['plain_ms']:.4f}, SDPA "
+          f"backward {k4['sdpa_ms']:.4f} ms")
+    return {"name": "bias_act", "route": "cuda", "source": SOURCES["bias_act"][0],
+            "replaces": SOURCES["bias_act"][1], "launches": launches["bias_act"],
+            "max_abs_err": max_abs, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
+            "library_ms": tot["library_ms"]}
 
 
 def main() -> int:
@@ -652,6 +951,7 @@ def main() -> int:
     # 6. Timing at the main path's shapes, summed over one main-path run.
     kernels = []
     pair = {"kernels_ms": 0.0, "library_ms": 0.0}
+    single = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for name in SERVING_KERNELS:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                "library_ms": 0.0}
@@ -665,6 +965,11 @@ def main() -> int:
             for f in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
                 tot[f] += n * row[f]
             tot["library_ms"] += n * (row["library_ms"] or 0.0)
+            if name != "flash_attn_fwd" and math.prod(key[0][1:]) * 4 <= 6 * 2**20:
+                # The maps the JAX single-block kernel takes (HW * C * 4 <= 6 MiB).
+                single["launches"] += n if name == "gn_stats" else 0
+                for f in ("ms", "plain_ms", "bound_ms"):
+                    single[f] += n * row[f]
             print(f"[time] {name} {key} x{n}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
                   f"bound {row['bound_ms']:.4f}, library {row['library_ms']}")
         kernels.append({
@@ -685,12 +990,22 @@ def main() -> int:
         ref = lambda: (F.silu if silu else (lambda y: y))(
             F.group_norm(x, groups, gamma.to(x.dtype), beta.to(x.dtype), 1e-5))
         pair["kernels_ms"] += n * time_ms(ours)
-        pair["library_ms"] += n * time_ms(ref)
+        lib_ms = time_ms(ref)
+        pair["library_ms"] += n * lib_ms
+        if math.prod(shape[1:]) * 4 <= 6 * 2**20:
+            single["library_ms"] += n * lib_ms
     print(f"[time] GroupNorm(+SiLU) per main-path run: K2+K3 {pair['kernels_ms']:.4f} ms, "
           f"F.group_norm(+silu) {pair['library_ms']:.4f} ms")
+    print(f"[time] GroupNorm on single-block maps (HW*C*4 <= 6 MiB, the JAX "
+          f"_gn_silu_pallas_fwd's) per main-path run: {single['launches']} calls, K2+K3 "
+          f"{single['ms']:.4f} ms, bound {single['bound_ms']:.4f} ms, plain "
+          f"{single['plain_ms']:.4f} ms, F.group_norm(+silu) {single['library_ms']:.4f} ms")
 
     del pipe, card_tiny, cpu
-    kernels += train_phases(card, gen, keys)
+    train_entries, train_keys, phase10 = train_phases(card, gen, keys)
+    kernels += train_entries
+    checked = {name: set(keys.get(name, ())) | set(train_keys[name]) for name in registry.KERNELS}
+    kernels.append(sida_phases(card, gen, checked, phase10))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -62,13 +62,14 @@ def build_parser() -> argparse.ArgumentParser:
     a("--lowmem-opt", dest="low_mem_opt", type=parse_bool, default=False,
       help="Low-memory Adam state (no mu at b1=0, bf16 nu)")
     a("--fake_score_use_lora", type=parse_bool, default=False)
-    a("--adv_weight_d", type=float, default=0.0, help="SiDA discriminator loss weight (not ported)")
-    a("--adv_weight_g", type=float, default=0.0, help="SiDA generator loss weight (not ported)")
+    a("--adv_weight_d", type=float, default=0.0, help="SiDA discriminator loss weight")
+    a("--adv_weight_g", type=float, default=0.0, help="SiDA generator loss weight")
     a("--gan_loss", choices=["ns", "hinge"], default="ns")
-    a("--adv_data", default=None)
-    a("--adv_tower", choices=["encoder", "dino"], default="encoder")
-    a("--adv_dino", default=None)
-    a("--adv_vit", choices=["s16", "tiny"], default="s16")
+    a("--adv_data", default=None, help="Real-latent corpus (.npz from encode_latents)")
+    a("--adv_tower", choices=["encoder", "dino"], default="encoder",
+      help="SiDA judge: psi's encoder or the projected DINO pixel discriminator")
+    a("--adv_dino", default=None, help="timm DINO ViT state dict (torch.save) for --adv_tower dino")
+    a("--adv_vit", choices=["s16", "tiny"], default="s16", help="DINO backbone: ViT-S/16 or tiny")
     a("--remat-policy", dest="remat_policy", choices=REMAT_CHOICES, default="full",
       help="With --grad-ckpt 1: 'full' or 'flash' (keeps the flash-attention outputs)")
     a("--lora_rank", type=int, default=4)

@@ -28,7 +28,7 @@ extern "C" {
 // forward.  delta: (bh, sq) f32 scratch.  dq_acc: (bh, sq, d) f32 scratch,
 // zeroed here; for f32 inputs it must be dq itself.  Returns a cudaError_t;
 // cudaErrorInvalidValue for a shape or dtype the kernels do not take
-// (d > 160).
+// (d > 160 in bf16, d > 512 in f32).
 int sidlsg_flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                           const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,
                           void* dk, void* dv, int bh, int sq, int sk, int d, float scale,

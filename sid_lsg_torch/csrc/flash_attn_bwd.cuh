@@ -30,9 +30,13 @@
 // - dq kernel (K5): one block of 4 warps per (bh, 64-query tile), looping
 //   over the k-tiles as K1 does; dQ stays in registers, written once, no
 //   atomics, so K5 + K6 are deterministic.
-// f32 (the tiny check and --bf16 0; D <= 160): CUDA cores, 128 threads per
-// block, 32-key x 32-query tiles; P and dS of a tile pair go through shared
-// memory.
+// f32 (the VAE's and the DINO ViT's attention, the tiny check and --bf16 0;
+// D <= 512): CUDA cores, 32-key x 32-query tiles and 128 threads per block
+// up to D = 160, 16 x 16 tiles and 256 threads above, so that the four
+// (tile x D) f32 tiles fit the 227 KB of shared memory at D = 512 (133 KB
+// there); P and dS of a tile pair go through shared memory, dK and dV stay
+// in registers (at D = 512, 64 floats per thread).  At D = 512 the five
+// products are 10 S_q S_k D operations on f32 CUDA cores, which bound it.
 // TMA, wgmma and warp specialisation are not used yet.
 
 #pragma once
@@ -515,38 +519,51 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const vo
 
 // ---------------------------------------------------------------- f32 path
 
-// Shared-memory layout of the f32 kernels: four (32 x D) tiles (Q, dO, K,
-// V; K and V rows padded by one float so that lanes reading different keys
-// hit different banks), the P and dS tiles as [q][key], and the tile's lse
-// and delta.
+// f32 tiles: TF rows of queries and of keys per tile pair, NTH threads per
+// block.  TF = 32 with 128 threads for D <= 160; TF = 16 with 256 threads
+// for D <= 512 (the VAE's one 512-wide head), where four 32-row tiles would
+// need 271 KB of shared memory against the 227 KB a block may have.
+template <int TF_, int NTH_>
+struct TileF {
+  static constexpr int TF = TF_;
+  static constexpr int NTH = NTH_;
+  static constexpr int TPR = NTH_ / TF_;  // threads per row of the dK/dV/dQ accumulators
+};
+using TileF32 = TileF<kTileF, kThreads>;  // D <= 160
+using TileF16 = TileF<16, 256>;            // D <= 512
+
+// Shared-memory layout of the f32 kernels: four (TF x D) tiles (Q, dO, K,
+// V; rows padded by one float so that lanes reading different rows hit
+// different banks), the P and dS tiles as [q][key], and the tile's lse and
+// delta.
 struct SmemF {
   float *Q, *G, *K, *V, *P, *S, *L, *E;
-  int dq4;  // row stride of Q and dO
-  int dk4;  // row stride of K and V
+  int ld;  // row stride of the four (TF x D) tiles
 };
 
+template <int TF>
 __device__ __forceinline__ SmemF smem_f(float* base, int d) {
   SmemF s;
-  s.dq4 = d;
-  s.dk4 = d + 1;
+  s.ld = d + 1;
   s.Q = base;
-  s.G = s.Q + kTileF * s.dq4;
-  s.K = s.G + kTileF * s.dq4;
-  s.V = s.K + kTileF * s.dk4;
-  s.P = s.V + kTileF * s.dk4;
-  s.S = s.P + kTileF * (kTileF + 1);
-  s.L = s.S + kTileF * (kTileF + 1);
-  s.E = s.L + kTileF;
+  s.G = s.Q + TF * s.ld;
+  s.K = s.G + TF * s.ld;
+  s.V = s.K + TF * s.ld;
+  s.P = s.V + TF * s.ld;
+  s.S = s.P + TF * (TF + 1);
+  s.L = s.S + TF * (TF + 1);
+  s.E = s.L + TF;
   return s;
 }
 
-inline size_t smem_f_bytes(int d) {
-  return sizeof(float) * (size_t(2) * kTileF * d + size_t(2) * kTileF * (d + 1) +
-                          size_t(2) * kTileF * (kTileF + 1) + 2 * kTileF);
+template <int TF>
+size_t smem_f_bytes(int d) {
+  return sizeof(float) * (size_t(4) * TF * (d + 1) + size_t(2) * TF * (TF + 1) + 2 * TF);
 }
 
+template <int TF>
 __device__ void load_rows_f(float* dst, int ld, const float* src, int row0, int rows_total, int d) {
-  for (int i = threadIdx.x; i < kTileF * d; i += blockDim.x) {
+  for (int i = threadIdx.x; i < TF * d; i += blockDim.x) {
     const int r = i / d, c = i % d;
     dst[r * ld + c] = row0 + r < rows_total ? src[size_t(row0 + r) * d + c] : 0.f;
   }
@@ -554,13 +571,15 @@ __device__ void load_rows_f(float* dst, int ld, const float* src, int row0, int 
 
 // For the tile pair (q0.., k0..) whose Q, dO, K, V, lse and delta are in
 // shared memory: P[q][key] and dS[q][key], 0 outside [sq) x [sk).
+template <class TL>
 __device__ void scores_f(const SmemF& s, int q0, int k0, int sq, int sk, int d, float scale) {
-  const int key = threadIdx.x % 32;
-  for (int qi = threadIdx.x / 32; qi < kTileF; qi += kThreads / 32) {
-    const float* qr = s.Q + qi * s.dq4;
-    const float* gr = s.G + qi * s.dq4;
-    const float* kr = s.K + key * s.dk4;
-    const float* vr = s.V + key * s.dk4;
+  constexpr int TF = TL::TF;
+  for (int pair = threadIdx.x; pair < TF * TF; pair += TL::NTH) {
+    const int qi = pair / TF, key = pair % TF;
+    const float* qr = s.Q + qi * s.ld;
+    const float* gr = s.G + qi * s.ld;
+    const float* kr = s.K + key * s.ld;
+    const float* vr = s.V + key * s.ld;
     float sv = 0.f, pv = 0.f;
     for (int c = 0; c < d; ++c) {
       sv = fmaf(qr[c], kr[c], sv);
@@ -568,51 +587,59 @@ __device__ void scores_f(const SmemF& s, int q0, int k0, int sq, int sk, int d, 
     }
     const bool ok = q0 + qi < sq && k0 + key < sk;
     const float p = ok ? expf(sv * scale - s.L[qi]) : 0.f;
-    s.P[qi * (kTileF + 1) + key] = p;
-    s.S[qi * (kTileF + 1) + key] = p * (pv - s.E[qi]) * scale;
+    s.P[qi * (TF + 1) + key] = p;
+    s.S[qi * (TF + 1) + key] = p * (pv - s.E[qi]) * scale;
   }
 }
 
-// kv kernel in f32: one block per (bh, 32-key tile), looping over q-tiles;
-// thread (key = tid / 4, c = tid % 4 + 4 j) accumulates dK and dV.  With DQ
-// the block also adds dS K of each tile pair into dq_acc with atomicAdd.
-template <int NJ, bool DQ>  // head dim d <= 4 * NJ
-__global__ void __launch_bounds__(kThreads)
+template <int TF>
+__device__ void load_lse_delta(const SmemF& s, const float* lse, const float* delta, size_t base,
+                               int q0, int sq) {
+  for (int i = threadIdx.x; i < TF; i += blockDim.x) {
+    s.L[i] = q0 + i < sq ? lse[base + q0 + i] : 0.f;
+    s.E[i] = q0 + i < sq ? delta[base + q0 + i] : 0.f;
+  }
+}
+
+// kv kernel in f32: one block per (bh, TF-key tile), looping over q-tiles;
+// thread (key = tid / TPR, c = tid % TPR + TPR j) accumulates dK and dV in
+// registers.  With DQ the block also adds dS K of each tile pair into
+// dq_acc with atomicAdd.
+template <class TL, int NJ, bool DQ>  // head dim d <= TPR * NJ
+__global__ void __launch_bounds__(TL::NTH)
 bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, float* __restrict__ dq_acc, float* __restrict__ dk,
            float* __restrict__ dv, int sq, int sk, int d, float scale) {
+  constexpr int TF = TL::TF, TPR = TL::TPR;
   extern __shared__ __align__(16) float fsm[];
-  const SmemF s = smem_f(fsm, d);
+  const SmemF s = smem_f<TF>(fsm, d);
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTileF;
-  const int row = threadIdx.x / 4, c0 = threadIdx.x % 4;
-  load_rows_f(s.K, s.dk4, k + size_t(bh) * sk * d, k0, sk, d);
-  load_rows_f(s.V, s.dk4, v + size_t(bh) * sk * d, k0, sk, d);
+  const int k0 = blockIdx.x * TF;
+  const int row = threadIdx.x / TPR, c0 = threadIdx.x % TPR;
+  load_rows_f<TF>(s.K, s.ld, k + size_t(bh) * sk * d, k0, sk, d);
+  load_rows_f<TF>(s.V, s.ld, v + size_t(bh) * sk * d, k0, sk, d);
   float dka[NJ], dva[NJ];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) dka[j] = dva[j] = 0.f;
 
-  for (int q0 = 0; q0 < sq; q0 += kTileF) {
+  for (int q0 = 0; q0 < sq; q0 += TF) {
     __syncthreads();  // the previous tile is consumed
-    load_rows_f(s.Q, s.dq4, q + size_t(bh) * sq * d, q0, sq, d);
-    load_rows_f(s.G, s.dq4, dout + size_t(bh) * sq * d, q0, sq, d);
-    for (int i = threadIdx.x; i < kTileF; i += blockDim.x) {
-      s.L[i] = q0 + i < sq ? lse[size_t(bh) * sq + q0 + i] : 0.f;
-      s.E[i] = q0 + i < sq ? delta[size_t(bh) * sq + q0 + i] : 0.f;
-    }
+    load_rows_f<TF>(s.Q, s.ld, q + size_t(bh) * sq * d, q0, sq, d);
+    load_rows_f<TF>(s.G, s.ld, dout + size_t(bh) * sq * d, q0, sq, d);
+    load_lse_delta<TF>(s, lse, delta, size_t(bh) * sq, q0, sq);
     __syncthreads();
-    scores_f(s, q0, k0, sq, sk, d, scale);
+    scores_f<TL>(s, q0, k0, sq, sk, d, scale);
     __syncthreads();
-    for (int qi = 0; qi < kTileF; ++qi) {
-      const float p = s.P[qi * (kTileF + 1) + row];
-      const float ds = s.S[qi * (kTileF + 1) + row];
+    for (int qi = 0; qi < TF; ++qi) {
+      const float p = s.P[qi * (TF + 1) + row];
+      const float ds = s.S[qi * (TF + 1) + row];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int c = c0 + 4 * j;
+        const int c = c0 + TPR * j;
         if (c < d) {
-          dva[j] = fmaf(p, s.G[qi * s.dq4 + c], dva[j]);
-          dka[j] = fmaf(ds, s.Q[qi * s.dq4 + c], dka[j]);
+          dva[j] = fmaf(p, s.G[qi * s.ld + c], dva[j]);
+          dka[j] = fmaf(ds, s.Q[qi * s.ld + c], dka[j]);
         }
       }
     }
@@ -622,11 +649,12 @@ bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float
         float* dst = dq_acc + (size_t(bh) * sq + qrow) * d;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const int c = c0 + 4 * j;
+          const int c = c0 + TPR * j;
           if (c < d) {
             float acc = 0.f;
-            for (int kk = 0; kk < kTileF; ++kk)
-              acc = fmaf(s.S[row * (kTileF + 1) + kk], s.K[kk * s.dk4 + c], acc);
+#pragma unroll
+            for (int kk = 0; kk < TF; ++kk)
+              acc = fmaf(s.S[row * (TF + 1) + kk], s.K[kk * s.ld + c], acc);
             atomicAdd(dst + c, acc);
           }
         }
@@ -637,7 +665,7 @@ bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float
   if (key < sk) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + 4 * j;
+      const int c = c0 + TPR * j;
       if (c < d) {
         dk[(size_t(bh) * sk + key) * d + c] = dka[j];
         dv[(size_t(bh) * sk + key) * d + c] = dva[j];
@@ -646,59 +674,58 @@ bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float
   }
 }
 
-template <int NJ, bool DQ>
+template <class TL, int NJ, bool DQ>
 cudaError_t launch_kv_f32(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
                           int bh, int sq, int sk, int d, float scale, cudaStream_t st) {
-  const size_t smem = smem_f_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(bwd_kv_f32<NJ, DQ>,
+  const size_t smem = smem_f_bytes<TL::TF>(d);
+  cudaError_t err = cudaFuncSetAttribute(bwd_kv_f32<TL, NJ, DQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + kTileF - 1) / kTileF, bh);
-  bwd_kv_f32<NJ, DQ><<<grid, kThreads, smem, st>>>(
+  const dim3 grid((sk + TL::TF - 1) / TL::TF, bh);
+  bwd_kv_f32<TL, NJ, DQ><<<grid, TL::NTH, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, dq_acc, static_cast<float*>(dk),
       static_cast<float*>(dv), sq, sk, d, scale);
   return cudaGetLastError();
 }
 
-// dq kernel in f32 (K5): one block per (bh, 32-query tile), looping over
-// k-tiles; thread (q = tid / 4, c = tid % 4 + 4 j) accumulates dQ.
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
+// dq kernel in f32 (K5): one block per (bh, TF-query tile), looping over
+// k-tiles; thread (q = tid / TPR, c = tid % TPR + TPR j) accumulates dQ.
+template <class TL, int NJ>
+__global__ void __launch_bounds__(TL::NTH)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, float* __restrict__ dq, int sq, int sk, int d,
            float scale) {
+  constexpr int TF = TL::TF, TPR = TL::TPR;
   extern __shared__ __align__(16) float fsm[];
-  const SmemF s = smem_f(fsm, d);
+  const SmemF s = smem_f<TF>(fsm, d);
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTileF;
-  const int row = threadIdx.x / 4, c0 = threadIdx.x % 4;
-  load_rows_f(s.Q, s.dq4, q + size_t(bh) * sq * d, q0, sq, d);
-  load_rows_f(s.G, s.dq4, dout + size_t(bh) * sq * d, q0, sq, d);
-  for (int i = threadIdx.x; i < kTileF; i += blockDim.x) {
-    s.L[i] = q0 + i < sq ? lse[size_t(bh) * sq + q0 + i] : 0.f;
-    s.E[i] = q0 + i < sq ? delta[size_t(bh) * sq + q0 + i] : 0.f;
-  }
+  const int q0 = blockIdx.x * TF;
+  const int row = threadIdx.x / TPR, c0 = threadIdx.x % TPR;
+  load_rows_f<TF>(s.Q, s.ld, q + size_t(bh) * sq * d, q0, sq, d);
+  load_rows_f<TF>(s.G, s.ld, dout + size_t(bh) * sq * d, q0, sq, d);
+  load_lse_delta<TF>(s, lse, delta, size_t(bh) * sq, q0, sq);
   float dqa[NJ];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) dqa[j] = 0.f;
 
-  for (int k0 = 0; k0 < sk; k0 += kTileF) {
+  for (int k0 = 0; k0 < sk; k0 += TF) {
     __syncthreads();
-    load_rows_f(s.K, s.dk4, k + size_t(bh) * sk * d, k0, sk, d);
-    load_rows_f(s.V, s.dk4, v + size_t(bh) * sk * d, k0, sk, d);
+    load_rows_f<TF>(s.K, s.ld, k + size_t(bh) * sk * d, k0, sk, d);
+    load_rows_f<TF>(s.V, s.ld, v + size_t(bh) * sk * d, k0, sk, d);
     __syncthreads();
-    scores_f(s, q0, k0, sq, sk, d, scale);
+    scores_f<TL>(s, q0, k0, sq, sk, d, scale);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + 4 * j;
+      const int c = c0 + TPR * j;
       if (c < d) {
         float acc = dqa[j];
-        for (int kk = 0; kk < kTileF; ++kk)
-          acc = fmaf(s.S[row * (kTileF + 1) + kk], s.K[kk * s.dk4 + c], acc);
+#pragma unroll
+        for (int kk = 0; kk < TF; ++kk)
+          acc = fmaf(s.S[row * (TF + 1) + kk], s.K[kk * s.ld + c], acc);
         dqa[j] = acc;
       }
     }
@@ -707,22 +734,22 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float
   if (qrow < sq) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + 4 * j;
+      const int c = c0 + TPR * j;
       if (c < d) dq[(size_t(bh) * sq + qrow) * d + c] = dqa[j];
     }
   }
 }
 
-template <int NJ>
+template <class TL, int NJ>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
                           int d, float scale, cudaStream_t st) {
-  const size_t smem = smem_f_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(bwd_dq_f32<NJ>,
+  const size_t smem = smem_f_bytes<TL::TF>(d);
+  cudaError_t err = cudaFuncSetAttribute(bwd_dq_f32<TL, NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kTileF - 1) / kTileF, bh);
-  bwd_dq_f32<NJ><<<grid, kThreads, smem, st>>>(
+  const dim3 grid((sq + TL::TF - 1) / TL::TF, bh);
+  bwd_dq_f32<TL, NJ><<<grid, TL::NTH, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), sq, sk, d, scale);
   return cudaGetLastError();
@@ -737,7 +764,8 @@ inline int vec_ok(int d, const void* a, const void* b, const void* c, const void
   return (d % 8 == 0) && (addr % 16 == 0);
 }
 
-constexpr int kMaxHeadDim = 160;  // both dtypes
+constexpr int kMaxHeadDimBf16 = 160;
+constexpr int kMaxHeadDimF32 = 512;
 
 // dK, dV (and with DQ, dQ added into the zeroed f32 dq_acc) for every dtype
 // and head dim the kernels take; cudaErrorInvalidValue otherwise.
@@ -760,15 +788,20 @@ cudaError_t run_kv(const void* q, const void* k, const void* v, const void* dout
     return cudaErrorInvalidValue;
   }
   if (dtype == 0) {
-    if (d <= 32) return launch_kv_f32<8, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, st);
-    if (d <= 64) return launch_kv_f32<16, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, st);
-    if (d <= 160) return launch_kv_f32<40, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, st);
+#define SIDLSG_KV_F32(TL, NJ) \
+  launch_kv_f32<TL, NJ, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, st)
+    if (d <= 32) return SIDLSG_KV_F32(TileF32, 8);
+    if (d <= 64) return SIDLSG_KV_F32(TileF32, 16);
+    if (d <= 160) return SIDLSG_KV_F32(TileF32, 40);
+    if (d <= kMaxHeadDimF32) return SIDLSG_KV_F32(TileF16, 32);
+#undef SIDLSG_KV_F32
   }
   return cudaErrorInvalidValue;
 }
 
 inline bool shape_ok(int bh, int sq, int sk, int d, int dtype) {
-  return bh > 0 && sq > 0 && sk > 0 && d > 0 && d <= kMaxHeadDim && (dtype == 0 || dtype == 1);
+  return bh > 0 && sq > 0 && sk > 0 && d > 0 &&
+         ((dtype == 0 && d <= kMaxHeadDimF32) || (dtype == 1 && d <= kMaxHeadDimBf16));
 }
 
 }  // namespace

@@ -35,9 +35,10 @@ int sidlsg_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const 
 #undef SIDLSG_DQ_CASE
     return cudaErrorInvalidValue;
   }
-  if (d <= 32) return launch_dq_f32<8>(q, k, v, dout, lf, dl, dq, bh, sq, sk, d, scale, st);
-  if (d <= 64) return launch_dq_f32<16>(q, k, v, dout, lf, dl, dq, bh, sq, sk, d, scale, st);
-  return launch_dq_f32<40>(q, k, v, dout, lf, dl, dq, bh, sq, sk, d, scale, st);
+  if (d <= 32) return launch_dq_f32<TileF32, 8>(q, k, v, dout, lf, dl, dq, bh, sq, sk, d, scale, st);
+  if (d <= 64) return launch_dq_f32<TileF32, 16>(q, k, v, dout, lf, dl, dq, bh, sq, sk, d, scale, st);
+  if (d <= 160) return launch_dq_f32<TileF32, 40>(q, k, v, dout, lf, dl, dq, bh, sq, sk, d, scale, st);
+  return launch_dq_f32<TileF16, 32>(q, k, v, dout, lf, dl, dq, bh, sq, sk, d, scale, st);
 }
 
 int sidlsg_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* out,

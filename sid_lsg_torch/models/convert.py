@@ -7,16 +7,22 @@ transformers key names, conv kernels HWIO -> OIHW, dense kernels
 (in, out) -> (out, in).  It walks the same structure as the JAX package's
 ``models/convert.py`` exporters, so every key the port's modules hold is
 filled and a missing leaf raises ``KeyError``.
+
+``disc_params_from_jax(params, spectral, vit_cfg)`` does the same for the
+SiDA projected discriminator: its ``params`` (``head_*`` and, when present,
+``dino``) and its ``spectral`` collection (the ``u`` vectors) become the
+state dict of ``models.stylegan_discriminator.ProjectedDiscriminator``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .configs import CLIPTextConfig, SDConfig, UNetConfig, VAEConfig
+from .stylegan_discriminator import ViTConfig
 
 
 class _Carry:
@@ -163,4 +169,46 @@ def params_from_jax(tree: dict, config: SDConfig, part: str) -> Dict[str, torch.
         _clip_text(c, config.text)
     else:
         raise ValueError(f"unknown part {part!r}; expected 'unet', 'vae' or 'text'")
+    return c.sd
+
+
+def _dino(c: _Carry, cfg: ViTConfig) -> None:
+    c.conv("patch_embed", "dino.patch_embed.proj")
+    c.put("dino.cls_token", c._leaf("cls_token"))
+    c.put("dino.pos_embed", c._leaf("pos_embed"))
+    for i in range(cfg.layers):
+        p, k = f"blocks_{i}", f"dino.blocks.{i}"
+        c.norm(f"{p}/norm1", f"{k}.norm1")
+        c.norm(f"{p}/norm2", f"{k}.norm2")
+        c.linear(f"{p}/qkv", f"{k}.attn.qkv")
+        c.linear(f"{p}/proj", f"{k}.attn.proj")
+        c.linear(f"{p}/fc1", f"{k}.mlp.fc1")
+        c.linear(f"{p}/fc2", f"{k}.mlp.fc2")
+
+
+def disc_params_from_jax(params: dict, spectral: Optional[dict],
+                         vit_cfg: ViTConfig) -> Dict[str, torch.Tensor]:
+    """JAX ``ProjectedDiscriminator`` params (and ``spectral`` u vectors, or
+    None) -> the port's state dict (f32).  Spectral kernels (features,
+    c_in * k) and FullyConnectedLayer weights (out, in) keep their layout;
+    the backbone's dense kernels transpose and its conv goes HWIO -> OIHW.
+    Without a ``dino`` entry only the heads are carried (e.g. gradients)."""
+    c = _Carry({"params": params, "spectral": spectral or {}})
+    for head in sorted(k for k in params if k.startswith("head_")):
+        src, dst = f"params/{head}", f"heads.{head[len('head_'):]}"
+        convs = ["main0/conv", "main1/conv", "cls"]
+        for conv in convs:
+            c.put(f"{dst}.{conv.replace('/', '.')}.weight", c._leaf(f"{src}/{conv}/kernel"))
+            c.put(f"{dst}.{conv.replace('/', '.')}.bias", c._leaf(f"{src}/{conv}/bias"))
+            if spectral is not None:
+                c.put(f"{dst}.{conv.replace('/', '.')}.u", c._leaf(f"spectral/{head}/{conv}/u"))
+        for bn in ("main0/bn", "main1/bn"):
+            c.put(f"{dst}.{bn.replace('/', '.')}.weight", c._leaf(f"{src}/{bn}/weight"))
+            c.put(f"{dst}.{bn.replace('/', '.')}.bias", c._leaf(f"{src}/{bn}/bias"))
+        if c.has(f"{src}/cmapper/weight"):
+            c.put(f"{dst}.cmapper.weight", c._leaf(f"{src}/cmapper/weight"))
+            c.put(f"{dst}.cmapper.bias", c._leaf(f"{src}/cmapper/bias"))
+    if "dino" in params:
+        c.tree = params["dino"]
+        _dino(c, vit_cfg)
     return c.sd

@@ -1,9 +1,10 @@
 """UNet2DCondition in PyTorch (NCHW): the SD denoiser backbone.
 
-Port of ``sid_lsg_tpu/models/unet.py`` (without ``encoder_only``).  Same
-topology: conv_in, down levels with cross-attention where the config says
-so, mid resnet/transformer/resnet, the mirrored up path with skip
-concatenation, GN+SiLU head.  Submodules carry the diffusers names
+Port of ``sid_lsg_tpu/models/unet.py``.  Same topology: conv_in, down
+levels with cross-attention where the config says so, mid
+resnet/transformer/resnet, the mirrored up path with skip concatenation,
+GN+SiLU head.  With ``encoder_only`` the forward stops after the mid block
+and returns the bottleneck map (the SiDA discriminator tower).  Submodules carry the diffusers names
 (``down_blocks.{i}``, ``mid_block``, ``up_blocks.{k}`` with k = 0 the
 deepest level).
 
@@ -139,9 +140,11 @@ class UNet2DCondition(nn.Module):
         return checkpoint(run, *args, *params, use_reentrant=False, **kwargs)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor, encoder_only: bool = False) -> torch.Tensor:
         """(B, C_in, H, W) latents, (B,) int timesteps, (B, L, cross_dim) context
-        -> (B, C_out, H, W) model output in the weights' dtype."""
+        -> (B, C_out, H, W) model output in the weights' dtype; with
+        ``encoder_only``, the mid block's output (B, C_max, H/2^(n-1),
+        W/2^(n-1)) instead."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
@@ -164,6 +167,8 @@ class UNet2DCondition(nn.Module):
         h = self._block(self.mid_block["resnets"][0], h, temb)
         h = self._block(self.mid_block["attentions"][0], h, context)
         h = self._block(self.mid_block["resnets"][1], h, temb)
+        if encoder_only:
+            return h
 
         for block in self.up_blocks:
             for j, res in enumerate(block["resnets"]):
@@ -180,19 +185,24 @@ Params = Dict[str, torch.Tensor]
 UNetApplyP = Callable[[Params, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def unet_apply_fn(config: UNetConfig, dtype: torch.dtype,
-                  remat_policy: Optional[str] = None) -> UNetApplyP:
+_DECODER_PREFIXES = ("up_blocks.", "conv_norm_out.", "conv_out.")
+
+
+def unet_apply_fn(config: UNetConfig, dtype: torch.dtype, remat_policy: Optional[str] = None,
+                  encoder_only: bool = False) -> UNetApplyP:
     """``apply(params, x, t, c)``: the UNet on a dict of parameter tensors
     (diffusers keys), each cast to ``dtype`` at apply time except those of
     the modules that keep f32 (``layers.keeps_f32``).  The module itself
-    holds no weights (meta)."""
+    holds no weights (meta).  With ``encoder_only`` it returns the bottleneck
+    map and casts only the parameters that path reads."""
     with torch.device("meta"):
         skeleton = UNet2DCondition(config, remat_policy=remat_policy)
     keep = frozenset(f"{name}.{p}" for name, m in skeleton.named_modules() if keeps_f32(m)
                      for p, _ in m.named_parameters())
 
     def apply(params: Params, x: torch.Tensor, t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        cast = {k: v if k in keep else v.to(dtype) for k, v in params.items()}
-        return functional_call(skeleton, cast, (x, t, c))
+        cast = {k: v if k in keep else v.to(dtype) for k, v in params.items()
+                if not (encoder_only and k.startswith(_DECODER_PREFIXES))}
+        return functional_call(skeleton, cast, (x, t, c), {"encoder_only": encoder_only})
 
     return apply

@@ -13,6 +13,7 @@ from .attention import (
     flash_attn_bwd_twopass,
     flash_attn_fwd,
 )
+from .bias_act import activation_funcs, bias_act, bias_act_fwd, bias_act_ref
 from .groupnorm import (
     gn_apply,
     gn_apply_ref,
@@ -27,6 +28,10 @@ __all__ = [
     "registry",
     "attention",
     "attention_ref",
+    "activation_funcs",
+    "bias_act",
+    "bias_act_fwd",
+    "bias_act_ref",
     "flash_attn_bwd",
     "flash_attn_bwd_dkv",
     "flash_attn_bwd_dq",

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "sidlsg_flash_attn_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_flash_attn_bwd_dq": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_flash_attn_bwd_dkv": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _P],
+    "sidlsg_bias_act": [_P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

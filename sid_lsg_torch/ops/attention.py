@@ -32,8 +32,7 @@ from . import registry
 from ._build import check, dtype_code, library, use_kernel
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = {torch.bfloat16: 160, torch.float32: 512}
-MAX_HEAD_DIM_BWD = 160  # K4, K5, K6, both dtypes
+MAX_HEAD_DIM = {torch.bfloat16: 160, torch.float32: 512}  # K1, K4, K5, K6
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -111,7 +110,7 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_inputs(what, q, k, v, out, lse, dout):
-    _check_qkv(what, q, k, v, MAX_HEAD_DIM_BWD)
+    _check_qkv(what, q, k, v, MAX_HEAD_DIM.get(q.dtype, 0))
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"{what}: out{tuple(out.shape)} dout{tuple(dout.shape)} "
                          f"lse{tuple(lse.shape)} for q{tuple(q.shape)}")
@@ -124,8 +123,8 @@ def _bwd_inputs(what, q, k, v, out, lse, dout):
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                    lse: torch.Tensor, dout: torch.Tensor, scale: float) -> Grads:
     """(dq, dk, dv) of ``flash_attn_fwd``: kernel K4 on a CUDA tensor (bf16
-    or f32, D <= 160; raises otherwise), ``flash_attn_bwd_ref`` on a CPU
-    tensor."""
+    with D <= 160, f32 with D <= 512; raises otherwise), ``flash_attn_bwd_ref``
+    on a CPU tensor."""
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)
     q, k, v, out, lse, dout = _bwd_inputs("flash_attn_bwd", q, k, v, out, lse, dout)

@@ -1,18 +1,32 @@
 """The SiD-LSG distillation step.
 
-Port of ``sid_lsg_tpu/training/distill.py`` without the SiDA adversarial
-branches (``adv_weight_D/G > 0`` raises; ROADMAP Queue 1 item 8).  Per
-iteration: the fake-score psi update (a denoising loss on generator
-samples), then the generator theta update (the score-identity loss) on the
-freshly updated psi, each with gradient accumulation over A rounds, NaN row
-masking, ``nan_to_num`` + Adam, then the EMA lerp.
+Port of ``sid_lsg_tpu/training/distill.py``.  Per iteration: the fake-score
+psi update (a denoising loss on generator samples), then the generator
+theta update (the score-identity loss) on the freshly updated psi, each
+with gradient accumulation over A rounds, NaN row masking, ``nan_to_num`` +
+Adam, then the EMA lerp.  With ``adv_weight_D`` / ``adv_weight_G`` > 0 the
+SiDA adversarial terms join the two losses (``training/adversarial.py``):
+the discriminator loss on real against generated samples trains psi (the
+``encoder`` tower) or the spectral heads of the pixel judge (the ``dino``
+tower, whose head parameters ride in ``params_fake`` under the prefix
+``disc.`` and share psi's optimizer), and the generator term steers theta.
 
-Latents are NCHW.  All random draws of a step (the context-dropout mask, z,
-noise, t) come from one CPU ``torch.Generator`` and are then moved to the
-device, so one seed gives the same step on the card and on the CPU
-(``draw_round``); they are a few hundred KB per microbatch.  The UNet is
-applied functionally, ``unet_apply(params, x, t, c)`` on dicts of tensors
-(``models.unet.unet_apply_fn``).
+Latents are NCHW.  All random draws of a step come from one CPU
+``torch.Generator`` and are then moved to the device, so one seed gives the
+same step on the card and on the CPU; they are a few hundred KB per
+microbatch.  Per accumulation round, in this order:
+
+- psi phase: the context-dropout keep mask (with context dropout), z, noise,
+  t (``draw_round``); with ``adv_weight_D`` > 0 the adversarial draws
+  (``draw_adv_psi``): noise for the real latents (``encoder``) or the
+  DiffAugment draws of the fake judge then of the real judge (``dino``);
+  then the multistep sampler's draws;
+- theta phase: z, noise, t; with ``adv_weight_G`` > 0 and the ``dino`` tower
+  the DiffAugment draws of the judge (``draw_adv_g``); then the multistep
+  sampler's draws.
+
+The UNet is applied functionally, ``unet_apply(params, x, t, c)`` on dicts of
+tensors (``models.unet.unet_apply_fn``).
 """
 
 from __future__ import annotations
@@ -25,6 +39,8 @@ import torch
 
 from ..diffusion.ddpm import DDPMScheduler
 from ..diffusion.sampling import sid_denoise, sid_sampler
+from . import adversarial
+from .adversarial import PixelDisc
 from .state import Optimizer, SiDState
 
 Params = Dict[str, torch.Tensor]
@@ -54,6 +70,8 @@ class DistillConfig:
     dtype: torch.dtype = torch.float32  # compute dtype of the UNet applications
     adv_weight_D: float = 0.0
     adv_weight_G: float = 0.0
+    gan_loss: str = "ns"  # 'ns' | 'hinge'
+    adv_tower: str = "encoder"  # 'encoder' | 'dino'
 
     @property
     def use_context_dropout_fake(self) -> bool:
@@ -88,25 +106,56 @@ def _masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, x, torch.zeros_like(x)).sum() / valid.sum().clamp_min(1)
 
 
-def _check_not_adversarial(cfg: DistillConfig) -> None:
-    if cfg.adversarial:
-        raise ValueError("adv_weight_D / adv_weight_G > 0: the SiDA adversarial terms are not "
-                         "ported yet (ROADMAP Queue 1 item 8)")
+DISC_PREFIX = "disc."
+
+
+def _per_sample(d: torch.Tensor) -> torch.Tensor:
+    """(B,) or (B, K) per-logit losses -> (B,): the pixel judge emits one
+    logit per head and token; their mean keeps the gan weights comparable
+    between towers."""
+    return d if d.dim() == 1 else d.mean(dim=tuple(range(1, d.dim())))
 
 
 def make_loss_fns(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: DistillConfig,
-                  fake_transform: Optional[Callable[[Params, Params], Params]] = None):
+                  fake_transform: Optional[Callable[[Params, Params], Params]] = None,
+                  unet_encode: Optional[UNetApplyP] = None,
+                  pixel_disc: Optional[PixelDisc] = None):
     """The per-round loss functions of both phases (JAX ``make_loss_fns``):
 
-    - ``psi_loss(params_fake, teacher, images, noise, emb, uncond_b, t, denom)
-      -> (loss, aux)``
+    - ``psi_loss(params_fake, teacher, images, noise, emb, uncond_b, t, denom,
+      adv=None) -> (loss, aux)``
     - ``g_loss(params_g, params_fake, teacher, z, noise, emb, uncond_b, t,
-      init_t, denom, generator=None) -> (loss, aux)``
-    - ``draw``, ``generate``, ``denoise`` building blocks.
+      init_t, denom, generator=None, adv=None) -> (loss, aux)``
+    - ``draw``, ``draw_adv_psi``, ``draw_adv_g``, ``generate``, ``denoise``
+      building blocks.
+
+    ``adv`` carries the adversarial inputs of a round: for ``psi_loss`` with
+    ``adv_weight_D`` > 0 the real latents ``lat_real`` and their caption
+    embeddings ``emb_real`` plus ``draw_adv_psi``'s draws; for ``g_loss``
+    with ``adv_weight_G`` > 0 ``draw_adv_g``'s draws.  ``unet_encode`` (the
+    encoder-only UNet apply) backs the ``encoder`` tower, ``pixel_disc`` the
+    ``dino`` tower, whose heads are the ``disc.``-prefixed entries of
+    ``params_fake``.
     """
-    _check_not_adversarial(cfg)
+    if cfg.adv_tower not in ("encoder", "dino"):
+        raise ValueError(f"unknown adv_tower: {cfg.adv_tower!r}")
+    pixel_mode = cfg.adversarial and cfg.adv_tower == "dino"
+    if cfg.adversarial and not pixel_mode and unet_encode is None:
+        raise ValueError("adv_weight_D/adv_weight_G > 0 with adv_tower='encoder' requires "
+                         "unet_encode (encoder-only UNet apply for the SiDA discriminator)")
+    if pixel_mode and pixel_disc is None:
+        raise ValueError("adv_tower='dino' requires pixel_disc")
     fake_transform = fake_transform or (lambda pf, teacher: pf)
     v_pred = scheduler.config.prediction_type == "v_prediction"
+
+    def psi_of(params_fake: Params) -> Params:
+        if not pixel_mode:
+            return params_fake
+        return {k: v for k, v in params_fake.items() if not k.startswith(DISC_PREFIX)}
+
+    def disc_of(params_fake: Params) -> Params:
+        return {k[len(DISC_PREFIX):]: v for k, v in params_fake.items()
+                if k.startswith(DISC_PREFIX)}
 
     def draw(generator: torch.Generator, mb: int, device) -> Tuple[torch.Tensor, ...]:
         shape = (mb, cfg.latent_channels, cfg.latent_size, cfg.latent_size)
@@ -127,13 +176,33 @@ def make_loss_fns(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: Distill
                            scheduler, guidance_scale=scale, predict_x0=predict_x0,
                            dtype=cfg.dtype)
 
-    def psi_loss(params_fake, teacher, images, noise, emb, uncond_b, t, denom):
+    def draw_adv_psi(generator: torch.Generator, mb: int, device) -> Dict[str, object]:
+        if pixel_mode:
+            return {side: pixel_disc.draw(generator, mb, cfg.latent_size)
+                    for side in ("aug_fake", "aug_real")}
+        shape = (mb, cfg.latent_channels, cfg.latent_size, cfg.latent_size)
+        return {"noise_real": torch.randn(shape, generator=generator).to(device)}
+
+    def draw_adv_g(generator: torch.Generator, mb: int) -> Dict[str, object]:
+        return {"aug": pixel_disc.draw(generator, mb, cfg.latent_size)} if pixel_mode else {}
+
+    def d_logits(params_fake, eff, latents, noise, emb, t, aug):
+        """Discriminator logits of one side (real or generated), per tower:
+        the pixel judge, or psi's pooled encoder features of the noised
+        latents (the denoising loss's timestep draw, so D sees every noise
+        level)."""
+        if pixel_mode:
+            return pixel_disc(disc_of(params_fake), latents, emb, aug)
+        x_in = scheduler.scale_model_input(scheduler.add_noise(latents, noise, t), t)
+        return adversarial.pooled_logit(unet_encode(eff, x_in.to(cfg.dtype), t, emb))
+
+    def psi_loss(params_fake, teacher, images, noise, emb, uncond_b, t, denom, adv=None):
         # Invalid input rows are zeroed before they enter the net, so every
         # activation stays finite and valid rows keep their gradients.
         valid_in = _per_sample_finite(images) & _per_sample_finite(noise)
         images = _mask_rows(images, valid_in)
         noise = _mask_rows(noise, valid_in)
-        eff = fake_transform(params_fake, teacher)
+        eff = fake_transform(psi_of(params_fake), teacher)
         noise_fake = denoise(eff, images, noise, emb, uncond_b, t, cfg.cfg_train_fake,
                              predict_x0=False)
         valid = valid_in & _per_sample_finite(noise_fake)
@@ -148,15 +217,35 @@ def make_loss_fns(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: Distill
             snr = scheduler.snr(t)
             per = per * snr / (snr + 1.0)
         loss = per.sum() * (cfg.loss_scaling / denom)
-        return loss, {"n_valid": valid.sum(), "loss": loss.detach()}
+        aux = {"n_valid": valid.sum(), "loss": loss.detach()}
+        if cfg.adv_weight_D <= 0.0:
+            return loss, aux
+        # The real rows carry their own corruption risk: sanitised like the
+        # generated side, and each side's d-loss masked by its own validity.
+        valid_real = _per_sample_finite(adv["lat_real"]) & _per_sample_finite(adv["emb_real"])
+        lat_real = _mask_rows(adv["lat_real"], valid_real)
+        emb_real = _mask_rows(adv["emb_real"], valid_real)
+        logit_fake = d_logits(params_fake, eff, images, noise, emb, t, adv.get("aug_fake"))
+        logit_real = d_logits(params_fake, eff, lat_real, adv.get("noise_real"), emb_real, t,
+                              adv.get("aug_real"))
+        d_fake = _per_sample(adversarial.d_loss_fake(logit_fake, cfg.gan_loss))
+        d_real = _per_sample(adversarial.d_loss_real(logit_real, cfg.gan_loss))
+        zero = torch.zeros((), dtype=d_fake.dtype, device=d_fake.device)
+        d_fake = torch.where(valid_in & torch.isfinite(d_fake), d_fake, zero)
+        d_real = torch.where(valid_real & torch.isfinite(d_real), d_real, zero)
+        adv_loss = (d_fake.sum() + d_real.sum()) * (cfg.adv_weight_D * cfg.loss_scaling / denom)
+        aux.update(adv_d_loss=adv_loss.detach(),
+                   d_logit_real=_masked_mean(_per_sample(logit_real.detach()), valid_real),
+                   d_logit_fake=_masked_mean(_per_sample(logit_fake.detach()), valid_in))
+        return loss + adv_loss, aux
 
     def g_loss(params_g, params_fake, teacher, z, noise, emb, uncond_b, t, init_t, denom,
-               generator=None):
+               generator=None, adv=None):
         valid_in = _per_sample_finite(z) & _per_sample_finite(noise)
         z = _mask_rows(z, valid_in)
         noise = _mask_rows(noise, valid_in)
         images = generate(params_g, z, emb, init_t, generator)
-        eff_fake = fake_transform(params_fake, teacher)
+        eff_fake = fake_transform(psi_of(params_fake), teacher)
         y_fake = denoise(eff_fake, images, noise, emb, uncond_b, t, cfg.cfg_eval_fake,
                          predict_x0=True)
         y_real = denoise(teacher, images, noise, emb, uncond_b, t, cfg.cfg_eval_real,
@@ -173,9 +262,21 @@ def make_loss_fns(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: Distill
             per = (y_real - y_fake) * ((y_real - x) - cfg.alpha * (y_real - y_fake)) / w
         per = _mask_rows(per, valid).sum(dim=(1, 2, 3))
         loss = per.sum() * (cfg.loss_scaling_G / denom)
-        return loss, {"n_valid": valid.sum(), "loss": loss.detach()}
+        aux = {"n_valid": valid.sum(), "loss": loss.detach()}
+        if cfg.adv_weight_G <= 0.0:
+            return loss, aux
+        # The gradient reaches theta through `images`; the judge is fixed here.
+        logit_gen = d_logits(params_fake, eff_fake, images, noise, emb, t,
+                             (adv or {}).get("aug"))
+        g_per = _per_sample(adversarial.g_loss(logit_gen, cfg.gan_loss))
+        g_per = torch.where(valid & torch.isfinite(g_per), g_per,
+                            torch.zeros((), dtype=g_per.dtype, device=g_per.device))
+        adv_loss = g_per.sum() * (cfg.adv_weight_G * cfg.loss_scaling_G / denom)
+        aux["adv_g_loss"] = adv_loss.detach()
+        return loss + adv_loss, aux
 
     return types.SimpleNamespace(psi_loss=psi_loss, g_loss=g_loss, draw=draw,
+                                 draw_adv_psi=draw_adv_psi, draw_adv_g=draw_adv_g,
                                  generate=generate, denoise=denoise)
 
 
@@ -196,23 +297,29 @@ def _detached(params: Params) -> Params:
 
 def make_train_step(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: DistillConfig,
                     opt_g: Optimizer, opt_fake: Optimizer,
-                    fake_transform: Optional[Callable[[Params, Params], Params]] = None):
+                    fake_transform: Optional[Callable[[Params, Params], Params]] = None,
+                    unet_encode: Optional[UNetApplyP] = None,
+                    pixel_disc: Optional[PixelDisc] = None):
     """Build ``train_step(state, teacher, batch, generator) -> (state, metrics)``.
 
     ``batch``: ``emb_fake`` and ``emb_g`` (A, mb, L, D) prompt embeddings of
-    the two phases, ``uncond_emb`` (L, D).  ``generator``: a CPU generator
-    (see ``draw_round``).  The state's tensors are updated in place
-    (parameters, moments, EMA) and its counters advanced; ``metrics`` holds
-    device scalars.
+    the two phases, ``uncond_emb`` (L, D); with ``adv_weight_D`` > 0 also
+    ``lat_real`` (A, mb, 4, h, w) real latents and ``emb_real`` (A, mb, L, D)
+    their caption embeddings.  ``generator``: a CPU generator (the module
+    docstring gives the order of its draws).  The state's tensors are
+    updated in place (parameters, moments, EMA) and its counters advanced;
+    ``metrics`` holds device scalars.
     """
-    L = make_loss_fns(unet_apply, scheduler, cfg, fake_transform)
+    L = make_loss_fns(unet_apply, scheduler, cfg, fake_transform, unet_encode, pixel_disc)
 
     def accumulate(grad_fn, params: Params, rounds: int):
         tensors = list(params.values())
         total, aux_sum = None, None
         for a in range(rounds):
             loss, aux = grad_fn(a)
-            grads = torch.autograd.grad(loss, tensors)
+            # Zeros for a parameter the loss does not reach (the judge's heads
+            # when only the generator term is on), as jax.grad gives.
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True, materialize_grads=True)
             if total is None:
                 total, aux_sum = list(grads), dict(aux)
             else:
@@ -234,12 +341,19 @@ def make_train_step(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: Disti
         def psi_round(a):
             keep, z, noise, t, init_t = draw_round(L, cfg, generator, mb, device,
                                                    cfg.use_context_dropout_fake)
-            emb = emb_fake[a]
-            if keep is not None:
-                emb = torch.where(keep[:, None, None], emb, uncond_b)
+            drop = (lambda e: e) if keep is None else (
+                lambda e: torch.where(keep[:, None, None], e, uncond_b))
+            emb = drop(emb_fake[a])
+            adv = None
+            if cfg.adv_weight_D > 0.0:
+                # The same keep mask on the real captions: otherwise carrying
+                # the empty prompt would mark a sample as generated.
+                adv = {"lat_real": batch["lat_real"][a], "emb_real": drop(batch["emb_real"][a]),
+                       **L.draw_adv_psi(generator, mb, device)}
             with torch.no_grad():
                 images = L.generate(params_g_frozen, z, emb, init_t, generator)
-            return L.psi_loss(state.params_fake, teacher, images, noise, emb, uncond_b, t, denom)
+            return L.psi_loss(state.params_fake, teacher, images, noise, emb, uncond_b, t, denom,
+                              adv)
 
         grads_f, aux_f = accumulate(psi_round, state.params_fake, rounds)
         opt_fake.step(state.params_fake, grads_f, state.opt_fake)
@@ -250,8 +364,9 @@ def make_train_step(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: Disti
 
         def g_round(a):
             _, z, noise, t, init_t = draw_round(L, cfg, generator, mb, device, False)
+            adv = L.draw_adv_g(generator, mb) if cfg.adv_weight_G > 0.0 else None
             return L.g_loss(state.params_G, params_fake_frozen, teacher, z, noise, emb_g[a],
-                            uncond_b, t, init_t, denom, generator)
+                            uncond_b, t, init_t, denom, generator, adv)
 
         grads_g, aux_g = accumulate(g_round, state.params_G, rounds)
         opt_g.step(state.params_G, grads_g, state.opt_G)
@@ -271,6 +386,11 @@ def make_train_step(unet_apply: UNetApplyP, scheduler: DDPMScheduler, cfg: Disti
             "g_valid": aux_g["n_valid"],
             "ema_beta": beta,
         }
+        for k in ("adv_d_loss", "d_logit_real", "d_logit_fake"):
+            if k in aux_f:
+                metrics[k] = aux_f[k] / rounds
+        if "adv_g_loss" in aux_g:
+            metrics["adv_g_loss"] = aux_g["adv_g_loss"] / rounds
         return state, metrics
 
     train_step.loss_fns = L

@@ -10,8 +10,16 @@ once per batch (frozen tower), tick-cadenced console / ``log.txt`` /
 Weights: a preset name or ``random:<preset>`` gives random weights from
 ``seed``.  What is not ported yet is refused when the ``Trainer`` is built,
 each with the ROADMAP item that brings it: checkpoint loading, resume,
-metrics, ``fsdp > 1``, the SiDA adversarial weights, orbax state dumps and
-profiler traces.
+metrics, ``fsdp > 1``, orbax state dumps (which would also carry the
+spectral ``u`` vectors of the SiDA pixel judge) and profiler traces.
+
+SiDA (``adv_weight_D`` / ``adv_weight_G`` > 0): the ``encoder`` tower judges
+with psi's encoder; the ``dino`` tower builds a ``ProjectedDiscriminator``
+(TINY_VIT or ViT-S/16, random backbone unless ``adv_dino`` names a timm
+state dict) whose trainable heads join ``params_fake`` as ``disc.*`` and
+whose ``u`` vectors advance after every step (``refresh_spectral_u``).
+Real latents come from ``adv_data`` or, without it, from a synthetic
+normal stream (``RandomState(seed + 2)``, the JAX package's).
 """
 
 from __future__ import annotations
@@ -27,17 +35,29 @@ import numpy as np
 import torch
 
 from ..cli.pngio import write_png
+from ..data.latents import InfiniteLatentIterator, LatentDataset
 from ..data.prompts import InfinitePromptIterator, PromptDataset
 from ..device import resolve_device
 from ..diffusion.rng import StackedRandomGenerator
 from ..diffusion.sampling import sid_sampler
 from ..models.configs import PRESETS, resolve
+from ..models.stylegan_discriminator import (
+    DINO_VIT_S16,
+    TINY_VIT,
+    ProjectedDiscriminator,
+    convert_dino,
+    head_params,
+    init_disc_weights_,
+    refresh_spectral_u,
+    spectral_buffers,
+)
 from ..models.unet import unet_apply_fn
 from ..pipeline import SDPipeline, random_state_dicts
 from ..runtime.checkpoint import export_generator
 from ..utils import training_stats
 from ..utils.util import EasyDict, format_time
-from .distill import DistillConfig, make_train_step
+from .adversarial import make_pixel_disc
+from .distill import DISC_PREFIX, DistillConfig, make_train_step
 from .lora import apply_lora, init_lora
 from .state import SiDState, init_state, make_optimizer
 
@@ -131,8 +151,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
         (cfg.resume is not None, "resume is not ported yet (ROADMAP Queue 1 item 5)"),
         (bool(cfg.metrics), "metrics during training are not ported yet (ROADMAP Queue 1 item 7)"),
         (cfg.fsdp > 1, "fsdp > 1 (torch.distributed) is not ported yet (ROADMAP Queue 1 item 5)"),
-        (cfg.adv_weight_D > 0.0 or cfg.adv_weight_G > 0.0,
-         "the SiDA adversarial weights are not ported yet (ROADMAP Queue 1 item 8)"),
         (cfg.state_dump_ticks > 0 and last_tick(cfg) >= cfg.state_dump_ticks,
          f"this schedule reaches a state dump at tick {cfg.state_dump_ticks} (last tick "
          f"{last_tick(cfg)}); state dumps are not ported yet (ROADMAP Queue 1 item 5): pass "
@@ -187,10 +205,13 @@ class Trainer:
             cfg_eval_real=cfg.cfg_eval_real, alpha=cfg.alpha, loss_scaling=cfg.loss_scaling,
             loss_scaling_G=cfg.loss_scaling_G, num_steps=cfg.num_steps,
             batch_size=cfg.batch_size, ema_halflife_kimg=cfg.ema_halflife_kimg,
-            ema_rampup_ratio=cfg.ema_rampup_ratio, dtype=dtype,
+            ema_rampup_ratio=cfg.ema_rampup_ratio, dtype=dtype, adv_weight_D=cfg.adv_weight_D,
+            adv_weight_G=cfg.adv_weight_G, gan_loss=cfg.gan_loss, adv_tower=cfg.adv_tower,
         )
         remat = cfg.remat_policy if cfg.gradient_checkpointing else None
         self.unet_apply = unet_apply_fn(sd_cfg.unet, dtype, remat_policy=remat)
+        unet_encode = (unet_apply_fn(sd_cfg.unet, dtype, remat_policy=remat, encoder_only=True)
+                       if self.dcfg.adversarial and cfg.adv_tower == "encoder" else None)
         wd = cfg.weight_decay if cfg.optimizer == "adamw" else 0.0
         self.opt_g = make_optimizer(lr=cfg.glr, eps=cfg.adam_eps, low_mem_state=cfg.low_mem_opt,
                                     weight_decay=wd)
@@ -202,6 +223,14 @@ class Trainer:
             lora_gen = torch.Generator(self.device).manual_seed(cfg.seed + 1)
             params_fake_init = init_lora(lora_gen, unet_f32, rank=cfg.lora_rank)
             fake_transform = lambda pf, teacher: apply_lora(teacher, pf)
+        self.disc: Optional[ProjectedDiscriminator] = None
+        pixel_disc = None
+        if self.dcfg.adversarial and cfg.adv_tower == "dino":
+            self.disc = self._build_disc(sd_cfg.unet.cross_attention_dim)
+            pixel_disc = make_pixel_disc(self.pipe.vae, self.disc, sd_cfg.vae.scaling_factor)
+            # psi and the judge's heads share psi's optimizer.
+            params_fake_init = {**(unet_f32 if params_fake_init is None else params_fake_init),
+                                **{DISC_PREFIX + k: v for k, v in head_params(self.disc).items()}}
         # The state holds the three trainables (f32 masters); the teacher
         # stays a separate frozen dict.
         self.state: SiDState = init_state(unet_f32, self.opt_g, self.opt_fake,
@@ -214,12 +243,57 @@ class Trainer:
         self.teacher: Dict[str, torch.Tensor] = (
             {k: v.to(torch.bfloat16) for k, v in unet_f32.items()} if cfg.teacher_bf16 else unet_f32)
         self.train_step = make_train_step(self.unet_apply, self.pipe.scheduler, self.dcfg,
-                                          self.opt_g, self.opt_fake, fake_transform=fake_transform)
+                                          self.opt_g, self.opt_fake, fake_transform=fake_transform,
+                                          unet_encode=unet_encode, pixel_disc=pixel_disc)
         dataset = (PromptDataset(cfg.data) if cfg.data
                    else PromptDataset([f"prompt {i}" for i in range(1024)], name="synthetic"))
         self.prompts = InfinitePromptIterator(dataset, cfg.microbatch, seed=cfg.seed)
-        # All draws of the step (see distill.draw_round), on the host.
+        # All draws of the step (see the training.distill docstring), on the host.
         self.generator = torch.Generator().manual_seed(cfg.seed)
+        self._init_real_latents()
+
+    def _build_disc(self, text_dim: int) -> ProjectedDiscriminator:
+        """The pixel judge: random weights from ``seed + 3``, the backbone
+        from ``adv_dino`` when given; frozen as a module (its heads train as
+        ``disc.*`` entries of ``params_fake``)."""
+        cfg = self.cfg
+        vit_cfg = TINY_VIT if cfg.adv_vit == "tiny" else DINO_VIT_S16
+        # power_iters=3 sweeps per call from the persistent u refreshed
+        # after every step (Trainer.step).
+        disc = ProjectedDiscriminator(c_dim=text_dim, vit=vit_cfg, power_iters=3).to(self.device)
+        init_disc_weights_(disc, torch.Generator(self.device).manual_seed(cfg.seed + 3))
+        if cfg.adv_dino:
+            state = torch.load(cfg.adv_dino, map_location="cpu", weights_only=True)
+            disc.dino.load_state_dict(convert_dino(state, vit_cfg), strict=True)
+        else:
+            print("WARNING: --adv_tower dino without --adv_dino uses a RANDOM DINO backbone - "
+                  "smoke/testing only.")
+        if self.dcfg.adv_weight_D == 0.0:
+            print("WARNING: --adv_tower dino with adv_weight_d == 0 - the spectral heads receive "
+                  "no gradients (only the D loss trains them), so the G term judges with random "
+                  "heads.")
+        return disc.eval().requires_grad_(False)
+
+    def _init_real_latents(self) -> None:
+        """The real-latent stream: only the D loss reads it."""
+        cfg = self.cfg
+        self.latents: Optional[InfiniteLatentIterator] = None
+        if cfg.adv_data and self.dcfg.adv_weight_D == 0.0:
+            print("WARNING: --adv_data is set but adv_weight_d == 0 - the real-latent corpus will "
+                  "NOT be read (only the discriminator loss consumes real latents).")
+        if self.dcfg.adv_weight_D <= 0.0:
+            return
+        if cfg.adv_data:
+            lat_ds = LatentDataset(cfg.adv_data)
+            h = lat_ds.latents.shape[1]
+            if h != self.dcfg.latent_size:
+                raise ValueError(f"{cfg.adv_data}: latent resolution {h} != model latent size "
+                                 f"{self.dcfg.latent_size}")
+            self.latents = InfiniteLatentIterator(lat_ds, cfg.microbatch, seed=cfg.seed + 2)
+        else:
+            print("WARNING: adversarial training without --adv_data uses SYNTHETIC random "
+                  "latents - smoke/testing only.")
+            self._adv_rng = np.random.RandomState(cfg.seed + 2)
 
     # ------------------------------------------------------------------ io
     def _encode_rounds(self) -> torch.Tensor:
@@ -230,14 +304,44 @@ class Trainer:
         emb = self.pipe.encode_prompts(prompts)
         return emb.reshape(self.a_rounds, self.cfg.microbatch, *emb.shape[1:])
 
+    def _adv_rounds(self):
+        """(A, mb, 4, h, w) real latents and (A, mb, L, D) caption embeddings."""
+        mb, rounds = self.cfg.microbatch, self.a_rounds
+        if self.latents is not None:
+            lats, caps = [], []
+            for _ in range(rounds):
+                lat, cap = next(self.latents)
+                lats.append(lat)
+                caps.extend(cap)
+            lat = np.stack(lats)
+        else:
+            s, c = self.dcfg.latent_size, self.dcfg.latent_channels
+            lat = self._adv_rng.randn(rounds, mb, s, s, c).astype(np.float32)
+            caps = [p for _ in range(rounds) for p in next(self.prompts)]
+        emb = self.pipe.encode_prompts(caps)
+        lat = torch.from_numpy(lat).permute(0, 1, 4, 2, 3).contiguous().to(self.device)
+        return lat, emb.reshape(rounds, mb, *emb.shape[1:])
+
     def next_batch(self) -> Dict[str, torch.Tensor]:
-        return {"emb_fake": self._encode_rounds(), "emb_g": self._encode_rounds(),
-                "uncond_emb": self.pipe.uncond_embedding()}
+        batch = {"emb_fake": self._encode_rounds(), "emb_g": self._encode_rounds(),
+                 "uncond_emb": self.pipe.uncond_embedding()}
+        if self.dcfg.adv_weight_D > 0.0:
+            batch["lat_real"], batch["emb_real"] = self._adv_rounds()
+        return batch
 
     def step(self) -> Dict[str, torch.Tensor]:
-        """One train step on the next batch; returns its metrics."""
+        """One train step on the next batch, then (pixel judge) the spectral
+        ``u`` vectors advanced against the heads it just updated; returns the
+        step's metrics."""
         self.state, metrics = self.train_step(self.state, self.teacher, self.next_batch(),
                                               self.generator)
+        if self.disc is not None:
+            heads = {k[len(DISC_PREFIX):]: v for k, v in self.state.params_fake.items()
+                     if k.startswith(DISC_PREFIX)}
+            buffers = spectral_buffers(self.disc)
+            with torch.no_grad():
+                for k, u in refresh_spectral_u(heads, buffers).items():
+                    buffers[k].copy_(u)
         return metrics
 
     def save_snapshot(self, kimg: int) -> str:
@@ -275,6 +379,12 @@ class Trainer:
         for m in pending:
             training_stats.report("fake_score_Loss/loss", float(m["fake_score_loss"]))
             training_stats.report("G_Loss/loss", float(m["g_loss"]))
+            if "adv_d_loss" in m:
+                training_stats.report("Adv/d_loss", float(m["adv_d_loss"]))
+                training_stats.report("Adv/d_logit_real", float(m["d_logit_real"]))
+                training_stats.report("Adv/d_logit_fake", float(m["d_logit_fake"]))
+            if "adv_g_loss" in m:
+                training_stats.report("Adv/g_loss", float(m["adv_g_loss"]))
         pending.clear()
 
     # ---------------------------------------------------------------- loop

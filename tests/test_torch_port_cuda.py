@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 flash attention forward, K2 GroupNorm stats,
 K3 GroupNorm apply, K4 fused flash backward, K5 + K6 two-pass flash
-backward) against their plain PyTorch versions, and UNet gradients through
-them against the CPU's, on the card.
+backward, K7 bias + activation) against their plain PyTorch versions, and
+UNet gradients through them against the CPU's, on the card.
 
 Needs a CUDA device, ``nvcc`` and no JAX; skips where torch finds no card.
 On the card's machine run it without the JAX-importing conftest:
@@ -140,6 +140,9 @@ BWD_SHAPES = [
     (torch.float32, 2, 2, 64, 64, 16),
     (torch.float32, 2, 3, 200, 77, 40),
     (torch.float32, 1, 2, 50, 90, 160),
+    (torch.float32, 2, 6, 197, 150, 64),
+    (torch.float32, 1, 1, 1024, 777, 512),
+    (torch.float32, 2, 1, 100, 64, 300),
 ]
 
 
@@ -169,12 +172,31 @@ def test_flash_attn_bwd_twopass_is_deterministic_and_agrees_with_fused(dev):
         assert_close(z.float() * c, x.float() * c, torch.bfloat16)
 
 
-def test_flash_attn_bwd_rejects_what_it_does_not_take(dev):
-    args, _ = bwd_case(dev, torch.float32, 1, 1, 16, 16, 192)
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 520), (torch.bfloat16, 192)])
+def test_flash_attn_bwd_rejects_what_it_does_not_take(dev, dtype, d):
+    args, _ = bwd_case(dev, dtype, 1, 1, 16, 16, d)
     with pytest.raises(ValueError):
         ops.flash_attn_bwd(*args, 0.1)
     with pytest.raises(ValueError):
         ops.flash_attn_bwd_twopass(*args, 0.1)
+
+
+@pytest.mark.parametrize("shape,dim", [((8, 64, 5, 7), 1), ((6, 64), 1), ((3, 10, 48), -1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", list(ops.activation_funcs))
+def test_bias_act_kernel_matches_plain(dev, act, dtype, shape, dim):
+    g = torch.Generator(dev).manual_seed(5)
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+    b = torch.randn(shape[dim], generator=g, device=dev).to(dtype)
+    for kw in ({}, dict(gain=1.3, clamp=5.0), dict(alpha=0.1)):
+        before = ops.registry.counts()["bias_act"]
+        y = ops.bias_act_fwd(x, b, dim, act, **kw)
+        torch.cuda.synchronize()
+        assert ops.registry.counts()["bias_act"] == before + 1
+        assert y.dtype == dtype and y.shape == x.shape
+        assert_close(y, ops.bias_act_ref(x.float(), b.float(), dim, act, **kw), dtype)
+    y = ops.bias_act_fwd(x, None, dim, act)
+    assert_close(y, ops.bias_act_ref(x.float(), None, dim, act), dtype)
 
 
 def test_unet_gradients_on_the_card_match_the_cpu(dev):

@@ -1,6 +1,6 @@
 """The port's training CLI on the CPU: run-dir artifacts, the snapshot read
-back by the JAX package, and the ``Trainer``'s refusals of what is not
-ported yet.
+back by the JAX package, the ``Trainer`` with each SiDA tower and a timm
+DINO state dict, and its refusals of what is not ported yet.
 
 The run is the CLI's ``main`` on the tiny preset (4 images per step in two
 accumulation rounds, a tick per step, 3 ticks, f32, a snapshot per tick),
@@ -94,8 +94,6 @@ def test_training_modules_import_without_jax():
     ("resume", "latest", "item 5"),
     ("metrics", ["fid30k_full"], "item 7"),
     ("fsdp", 4, "item 5"),
-    ("adv_weight_D", 0.1, "item 8"),
-    ("adv_weight_G", 0.1, "item 8"),
     ("state_dump_ticks", 1, "item 5"),
     ("profile_dir", "/tmp/trace", "item 5"),
 ])
@@ -106,3 +104,65 @@ def test_trainer_refuses_what_is_not_ported(field, value, item):
     cfg = TrainConfig(**kw)
     with pytest.raises(ValueError, match=f"not ported yet \\(ROADMAP Queue 1 {item}\\)"):
         Trainer(cfg)
+
+
+SIDA = dict(model="tiny", device="cpu", batch_size=2, microbatch=2, total_kimg=1, kimg_per_tick=0,
+            state_dump_ticks=0, use_bf16=False, adv_weight_G=0.1, adv_vit="tiny", seed=1)
+
+
+@pytest.mark.parametrize("tower,weight_d", [("encoder", 0.1), ("dino", 0.1), ("dino", 0.0)])
+def test_trainer_builds_and_steps_with_each_sida_tower(tower, weight_d):
+    """With adv_weight_D = 0 the judge's heads get zero gradients (as
+    jax.grad gives) and only the generator term is on."""
+    tr = Trainer(TrainConfig(adv_tower=tower, adv_weight_D=weight_d, **SIDA))
+    fake0 = {k: v.detach().clone() for k, v in tr.state.params_fake.items()}
+    u0 = {k: v.clone() for k, v in tr.disc.named_buffers() if k.endswith(".u")} if tr.disc else {}
+    assert (tr.disc is not None) == (tower == "dino")
+    assert any(k.startswith("disc.heads.") for k in fake0) == (tower == "dino")
+    m = tr.step()
+    d_keys = ("adv_d_loss", "d_logit_real", "d_logit_fake") if weight_d else ()
+    assert set(d_keys) <= set(m) and (weight_d or "adv_d_loss" not in m)
+    for k in ("fake_score_loss", "g_loss", "adv_g_loss") + d_keys:
+        assert np.isfinite(float(m[k])), k
+    changed = [k for k, v in tr.state.params_fake.items() if not torch.equal(v.detach(), fake0[k])]
+    assert any(k.startswith("disc.") for k in changed) == (tower == "dino" and weight_d > 0)
+    if tower == "dino":
+        assert all(not p.requires_grad for p in tr.disc.parameters())
+        assert all(not torch.equal(v, u0[k]) for k, v in tr.disc.named_buffers() if k in u0)
+
+
+def test_adv_dino_loads_a_timm_state_dict(tmp_path):
+    """A timm-keyed ViT state dict (with the final norm and head that the
+    backbone does not use) saved by torch.save loads as the DINO backbone."""
+    from sid_lsg_torch.models.stylegan_discriminator import TINY_VIT, DINOViT
+
+    gen = torch.Generator().manual_seed(0)
+    timm = {k: torch.randn(v.shape, generator=gen) for k, v in DINOViT(TINY_VIT).state_dict().items()}
+    timm.update({"norm.weight": torch.ones(32), "norm.bias": torch.zeros(32),
+                 "head.weight": torch.zeros(10, 32)})
+    path = tmp_path / "dino_tiny.pth"
+    torch.save(timm, path)
+    tr = Trainer(TrainConfig(adv_tower="dino", adv_dino=str(path), adv_weight_D=0.1, **SIDA))
+    got = tr.disc.dino.state_dict()
+    assert set(got) == set(timm) - {"norm.weight", "norm.bias", "head.weight"}
+    for k, v in got.items():
+        torch.testing.assert_close(v, timm[k], rtol=0, atol=0, msg=k)
+
+
+def test_trainer_reads_real_latents_from_adv_data(tmp_path):
+    """--adv_data: the real latents (NHWC on disk, scaled) reach the step as
+    NCHW rows of the corpus, with their captions; a corpus of another latent
+    size is refused."""
+    path = str(tmp_path / "real.npz")
+    lat = np.random.RandomState(0).randn(5, 8, 8, 4).astype(np.float16)
+    np.savez(path, latents=lat, captions=np.array([f"real {i}" for i in range(5)]))
+    tr = Trainer(TrainConfig(adv_tower="encoder", adv_weight_D=0.1, adv_data=path, **SIDA))
+    batch = tr.next_batch()
+    assert batch["lat_real"].shape == (1, 2, 4, 8, 8) and batch["emb_real"].shape[:2] == (1, 2)
+    rows = {tuple(np.round(x, 3).ravel()) for x in lat.astype(np.float32).transpose(0, 3, 1, 2)}
+    assert all(tuple(np.round(r.numpy(), 3).ravel()) in rows for r in batch["lat_real"][0])
+    assert np.isfinite(float(tr.step()["adv_d_loss"]))
+    small = str(tmp_path / "small.npz")
+    np.savez(small, latents=lat[:, :4, :4], captions=np.array(["x"] * 5))
+    with pytest.raises(ValueError, match="latent resolution"):
+        Trainer(TrainConfig(adv_tower="encoder", adv_weight_D=0.1, adv_data=small, **SIDA))
