@@ -3,7 +3,12 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline ROOT]
+
+``--baseline ROOT`` names another checkout (an unpacked ``git archive`` of
+a parent commit, say): its kernels are built from ``ROOT/sid_lsg_torch/csrc``
+and its K1 and K4 are timed beside this tree's at every shape of phases 6,
+11 and 16, in the same run on the same card.
 
 It drives the port's three paths at full SD1.5 width on random weights from
 a seed, through the CUDA kernels built from ``sid_lsg_torch/csrc``: one-step
@@ -11,8 +16,10 @@ text-to-image generation (batch 4, 512x512, init_timestep 625; phases 2-6),
 the SiD-LSG distillation train step (phases 7-11) and the SiDA adversarial
 train step (phases 12-16).
 
-1. Build: compile the kernels with nvcc for sm_90a; print the build time and
-   the card's name and power limit.
+1. Build: compile the kernels with nvcc for sm_90a; print the build time,
+   the card's name and power limit, the registers and spills of K1's and
+   K4's kernels (``-Xptxas -v``) and the dynamic shared memory of each of
+   their instantiations.
 2. Warm-up generation: text -> UNet -> x0 -> VAE decode once; the launch
    counters record every distinct kernel input shape of the path; x0 must be
    finite and the images of the right shape and not constant.
@@ -35,6 +42,7 @@ train step (phases 12-16).
    bound, its plain version and a library yardstick (SDPA for K1,
    ``torch.var_mean`` for K2; F.group_norm+SiLU for K2+K3 together).  Times
    are summed over one main-path run: sum over shapes of launches x ms.
+   With ``--baseline``, K1 of the baseline beside K1 at each shape.
 
 7. Train step: a ``Trainer`` built from the ``sid_train`` flags in
    ``TRAIN_ARGS`` (SD1.5, batch 4 in one microbatch, kappa 1.5, bf16,
@@ -62,7 +70,8 @@ train step (phases 12-16).
 11. Backward kernel timing: K4, K5 and K6 at the step's shapes with CUDA
    events, summed over one step (K4's launches x time; K5 and K6 as if they
    replaced K4), beside bound, plain version and SDPA's backward (forward +
-   backward minus forward).
+   backward minus forward); K1 at the step's shapes, summed over one step
+   (with ``--baseline``, the baseline's K1 and K4 beside them).
 
 12. SiDA step: a ``Trainer`` from ``SIDA_ARGS`` (``TRAIN_ARGS`` plus the
    adversarial weights 0.1, the ``dino`` tower with a random DINO ViT-S/16,
@@ -90,19 +99,26 @@ train step (phases 12-16).
    memory, one traced step; printed beside phase 10's.
 16. SiDA kernel timing, summed over one step: K7 beside its bound, plain
    version and ``torch.add``; K4 (and K5 + K6) at the new f32 shapes beside
-   bound, plain version and SDPA's backward, with the SDPA backend named.
+   bound, plain version and SDPA's backward, with the SDPA backend named;
+   K1 at the step's shapes that phases 6 and 11 did not time (the DINO
+   ViT's (4, 6, 197, 64) f32); with ``--baseline``, the baseline's K1 and
+   K4 beside them.
 
 Any failure raises and exits non-zero.  The last line is the result object.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 PROMPTS = [
     "a photo of an astronaut riding a horse on the moon",
@@ -188,6 +204,88 @@ def time_ms(fn, min_iters: int = 10, min_total_ms: float = 30.0) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The kernel library of another checkout (``--baseline``), whose K1 and K4
+# are timed beside this one's at the same shapes in the same run; None
+# without the option.
+BASELINE = None
+
+
+def load_baseline(root: str):
+    """Build the kernels of the checkout at ``root`` (its
+    ``sid_lsg_torch/csrc``) into this tree's build directory and load them."""
+    from sid_lsg_torch.ops import _build
+
+    csrc = Path(root) / "sid_lsg_torch" / "csrc"
+    require(csrc.is_dir(), f"--baseline {root}: no sid_lsg_torch/csrc there")
+    t0 = time.perf_counter()
+    lib = _build.load(_build.build(csrc), required=False)
+    print(f"[baseline] kernels of {root} built in {time.perf_counter() - t0:.3f} s")
+    return lib
+
+
+@contextlib.contextmanager
+def attention_library(lib):
+    """Route ``ops.attention``'s wrappers to the kernel library ``lib``."""
+    mod = sys.modules["sid_lsg_torch.ops.attention"]
+    saved = mod.library
+    mod.library = lambda: lib
+    try:
+        yield
+    finally:
+        mod.library = saved
+
+
+def baseline_ms(fn) -> float:
+    """``time_ms(fn)`` with the baseline's kernels (0.0 without a baseline)."""
+    if BASELINE is None:
+        return 0.0
+    with attention_library(BASELINE):
+        return time_ms(fn)
+
+
+def print_kernel_build(lib_path) -> None:
+    """Registers and spills of K1's and K4's kernels from ``-Xptxas -v``, and
+    the dynamic shared memory each instantiation's launch takes."""
+    from sid_lsg_torch.ops import _build
+
+    rows = [r for r in _build.ptxas_report(lib_path)
+            if any(k in r[0] for k in ("fwd_bf16_wgmma", "fwd_f32_tf32x3", "bwd_bf16_wgmma",
+                                       "bwd_f32_tf32x3"))]
+    names = [r[0] for r in rows]
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True).stdout.split("\n")
+    for name, (_, regs, st, ld) in zip(names, rows):
+        print(f"[ptxas] {name.strip()}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    lib = _build.library()
+    for code, dps in ((1, (16, 32, 48, 64, 80, 160)), (0, (64, 192, 320, 512))):
+        for dp in dps:
+            print(f"[smem] {'bf16' if code else 'f32'} head dim {dp}: K1 "
+                  f"{lib.sidlsg_flash_attn_fwd_smem(code, dp)} B, K4 "
+                  f"{lib.sidlsg_flash_attn_bwd_smem(code, dp)} B of dynamic shared memory")
+
+
+def time_fwd_keys(keys, gen, label: str) -> dict:
+    """K1 at each recorded launch key, summed over the launches: this tree's
+    kernel, the baseline's, the plain version, the bound and SDPA."""
+    tot = {"ms": 0.0, "base_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
+           "bytes_ms": 0.0, "library_ms": 0.0}
+    for key, n in sorted(keys.items(), key=lambda kv: str(kv[0])):
+        kern, plain, lib, _, (nbytes, flops, op_type) = kernel_cases("flash_attn_fwd", key, gen)
+        ops_ms, bytes_ms = flops / PEAK_FLOPS[op_type] * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"ms": time_ms(kern), "base_ms": baseline_ms(kern), "plain_ms": time_ms(plain),
+               "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+               "library_ms": time_ms(lib)}
+        for f in tot:
+            tot[f] += n * row[f]
+        print(f"[time] flash_attn_fwd {key} x{n}: {row['ms']:.4f} ms, baseline "
+              f"{row['base_ms']:.4f}, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f}, "
+              f"SDPA {row['library_ms']:.4f}")
+    print(f"[time] K1 per {label}: {tot['ms']:.4f} ms, baseline {tot['base_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, SDPA {tot['library_ms']:.4f} ms")
+    return tot
 
 
 def trace(label: str, fn, top: int = 15, host_top: int = 0) -> None:
@@ -626,8 +724,8 @@ def train_phases(card: str, gen, serving_keys):
 
     # 11. Backward kernel timing at the step's shapes, summed over one step.
     entries = []
-    rows = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                   "library_ms": 0.0} for name in BWD_KERNELS}
+    rows = {name: {"ms": 0.0, "base_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
+                   "bytes_ms": 0.0, "library_ms": 0.0} for name in BWD_KERNELS}
     for key, (cases, plain, (sdpa_fwd, sdpa_both)) in sorted(bwd.items(), key=lambda kv: str(kv[0])):
         n = train_keys["flash_attn_bwd"][key]
         plain_ms = time_ms(plain)
@@ -636,12 +734,15 @@ def train_phases(card: str, gen, serving_keys):
             ops_ms = flops / PEAK_FLOPS[key[2]] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             ms = time_ms(kern)
+            base = baseline_ms(kern) if name == "flash_attn_bwd" else 0.0
             r = rows[name]
-            for f, x in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", max(ops_ms, bytes_ms)),
-                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms), ("library_ms", sdpa_bwd_ms)):
+            for f, x in (("ms", ms), ("base_ms", base), ("plain_ms", plain_ms),
+                         ("bound_ms", max(ops_ms, bytes_ms)), ("ops_ms", ops_ms),
+                         ("bytes_ms", bytes_ms), ("library_ms", sdpa_bwd_ms)):
                 r[f] += n * x
-            print(f"[time] {name} {key} x{n}: {ms:.4f} ms, plain {plain_ms:.4f}, bound "
-                  f"{max(ops_ms, bytes_ms):.4f}, SDPA backward {sdpa_bwd_ms:.4f}")
+            print(f"[time] {name} {key} x{n}: {ms:.4f} ms, baseline {base:.4f}, plain "
+                  f"{plain_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f}, SDPA backward "
+                  f"{sdpa_bwd_ms:.4f}")
     for name in BWD_KERNELS:
         r = rows[name]
         entries.append({
@@ -652,9 +753,12 @@ def train_phases(card: str, gen, serving_keys):
             "bound_by": "operations" if r["ops_ms"] > r["bytes_ms"] else "bytes",
             "library_ms": r["library_ms"] if name == "flash_attn_bwd" else None,
         })
-    print(f"[time] per train step: K4 {rows['flash_attn_bwd']['ms']:.4f} ms, K5 + K6 "
+    print(f"[time] per train step: K4 {rows['flash_attn_bwd']['ms']:.4f} ms, baseline "
+          f"{rows['flash_attn_bwd']['base_ms']:.4f} ms, bound "
+          f"{rows['flash_attn_bwd']['bound_ms']:.4f} ms, K5 + K6 "
           f"{rows['flash_attn_bwd_dq']['ms'] + rows['flash_attn_bwd_dkv']['ms']:.4f} ms, SDPA "
           f"backward {rows['flash_attn_bwd']['library_ms']:.4f} ms")
+    time_fwd_keys(train_keys["flash_attn_fwd"], gen, "train step")
     return entries, train_keys, phase10
 
 def fingerprints(tree) -> "torch.Tensor":
@@ -830,26 +934,33 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
               f"{row['bound_ms']:.7f}, torch.add {row['library_ms']:.5f}")
     print(f"[time] per SiDA step: K7 {tot['ms']:.5f} ms, plain {tot['plain_ms']:.5f}, bound "
           f"{tot['bound_ms']:.7f}, torch.add {tot['library_ms']:.5f}")
-    k4 = {"ms": 0.0, "twopass_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "sdpa_ms": 0.0}
+    k4 = {"ms": 0.0, "base_ms": 0.0, "twopass_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+          "sdpa_ms": 0.0}
     for key, (cases, plain, (sdpa_fwd, sdpa_both)) in bwd.items():
         n = sida_keys["flash_attn_bwd"][key]
         kern, _, nbytes, flops = cases["flash_attn_bwd"]
         ops_ms, bytes_ms = flops / PEAK_FLOPS[key[2]] * 1e3, nbytes / PEAK_BYTES * 1e3
-        ms, plain_ms = time_ms(kern), time_ms(plain)
+        ms, base, plain_ms = time_ms(kern), baseline_ms(kern), time_ms(plain)
         twopass_ms = time_ms(cases["flash_attn_bwd_dq"][0]) + time_ms(cases["flash_attn_bwd_dkv"][0])
         sdpa_ms = time_ms(sdpa_both) - time_ms(sdpa_fwd)
         q = torch.empty(key[0], device="cuda", dtype=getattr(torch, key[2].split(".")[1]))
         backend = SDPBackend(torch._fused_sdp_choice(q, q, q)).name
-        for f, x in (("ms", ms), ("twopass_ms", twopass_ms), ("bound_ms", max(ops_ms, bytes_ms)),
-                     ("plain_ms", plain_ms), ("sdpa_ms", sdpa_ms)):
+        for f, x in (("ms", ms), ("base_ms", base), ("twopass_ms", twopass_ms),
+                     ("bound_ms", max(ops_ms, bytes_ms)), ("plain_ms", plain_ms),
+                     ("sdpa_ms", sdpa_ms)):
             k4[f] += n * x
-        print(f"[time] flash_attn_bwd {key} x{n}: {ms:.4f} ms, K5 + K6 {twopass_ms:.4f}, plain "
+        print(f"[time] flash_attn_bwd {key} x{n}: {ms:.4f} ms, baseline {base:.4f}, K5 + K6 "
+              f"{twopass_ms:.4f}, plain "
               f"{plain_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f} "
               f"({'operations' if ops_ms > bytes_ms else 'bytes'}), SDPA backward {sdpa_ms:.4f} "
               f"({backend})")
-    print(f"[time] per SiDA step at the new f32 shapes: K4 {k4['ms']:.4f} ms, K5 + K6 "
+    print(f"[time] per SiDA step at the new f32 shapes: K4 {k4['ms']:.4f} ms, baseline "
+          f"{k4['base_ms']:.4f} ms, K5 + K6 "
           f"{k4['twopass_ms']:.4f}, bound {k4['bound_ms']:.4f}, plain {k4['plain_ms']:.4f}, SDPA "
           f"backward {k4['sdpa_ms']:.4f} ms")
+    new_fwd = {key: n for key, n in sida_keys["flash_attn_fwd"].items()
+               if key not in checked["flash_attn_fwd"]}
+    time_fwd_keys(new_fwd, gen, "SiDA step at the shapes the train step lacks")
     return {"name": "bias_act", "route": "cuda", "source": SOURCES["bias_act"][0],
             "replaces": SOURCES["bias_act"][1], "launches": launches["bias_act"],
             "max_abs_err": max_abs, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -858,7 +969,12 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
             "library_ms": tot["library_ms"]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", default=None,
+                        help="root of another checkout whose K1 and K4 are timed beside this "
+                             "one's (built from its sid_lsg_torch/csrc)")
+    baseline = parser.parse_args(argv).baseline
     import torch
 
     if not torch.cuda.is_available():
@@ -884,6 +1000,10 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {lib_path} in {build_s:.3f} s")
     print(f"[card] {card}")
+    print_kernel_build(lib_path)
+    if baseline:
+        global BASELINE
+        BASELINE = load_baseline(baseline)
 
     # 2. Warm-up generation; records every kernel input shape of the path.
     t0 = time.perf_counter()
@@ -955,7 +1075,11 @@ def main() -> int:
     for name in SERVING_KERNELS:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                "library_ms": 0.0}
+        if name == "flash_attn_fwd":
+            tot = time_fwd_keys(main_keys[name], gen, "batch")
         for key, n in sorted(main_keys[name].items(), key=lambda kv: str(kv[0])):
+            if name == "flash_attn_fwd":
+                continue
             kern, plain, lib, _, (nbytes, flops, op_type) = kernel_cases(name, key, gen)
             ops_ms = flops / PEAK_FLOPS[op_type] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3

@@ -1,5 +1,8 @@
-// Flash-attention backward kernels for Hopper (sm_90a), shared by K4
-// (flash_attn_bwd.cu) and K5/K6 (flash_attn_bwd_twopass.cu).
+// Flash-attention backward kernels K5 and K6 for Hopper (sm_90a)
+// (flash_attn_bwd_twopass.cu), and the delta pre-pass and shape check that
+// K4 (flash_attn_bwd.cu) shares with them.  K5 and K6 keep the mma.sync
+// design below; they are off the training path and serve as an independent
+// check on K4, whose kernels are in flash_attn_bwd.cu.
 //
 // Every kernel here recomputes the probabilities from the forward's row
 // logsumexp, P = exp(S * scale - lse), with S = Q K^T, and uses
@@ -10,34 +13,27 @@
 // S_q not a multiple of the tile) are masked in the kernels: rows past the
 // end load as zeros and their probabilities are set to 0.
 //
-// What bounds them on the H100: the five products are 10 * S_q * S_k * D
-// operations per (batch, head) against (4 S_q + 4 S_k) * D * 2 bytes, far
-// above the card's ~295 operations per byte at the UNet's self-attention
-// (S = 4096/1024), so the tensor cores bound them; at cross-attention
-// (S_k = 77) the bytes of Q, dO and dQ do.
+// What bounds them on the H100: K5's three products and K6's four are
+// 6 and 8 S_q S_k D operations per (batch, head) against a few S D bytes,
+// so the tensor cores bound them at the UNet's self-attention; at
+// cross-attention (S_k = 77) the bytes of Q, dO and dQ do.
 //
-// Design (bf16, mma.sync m16n8k16, f32 accumulate, as K1):
-// - kv kernel (K4 with dQ, K6 without): one block of 4 warps per (bh,
-//   64-key tile); each warp owns 16 keys.  The block walks the q-tiles in a
-//   loop, Q/dO tiles double-buffered by 16-byte cp.async.  S^T and dP^T are
-//   computed key-major, so P^T and dS^T sit in registers in the C-fragment
-//   layout that is also the A operand of dV += P^T dO and dK += dS^T Q; dV
-//   and dK accumulate in registers for the whole sweep.  For dQ the block
-//   writes dS (bf16) to shared memory as [q][key], multiplies it by its K
-//   tile and adds the (q-tile x D) result into one f32 buffer with
-//   atomicAdd: the TPU kernel's per-k-block dQ partials would be num_k
-//   times the size of dQ (64x at S = 4096).
+// Design (bf16, mma.sync m16n8k16, f32 accumulate):
+// - kv kernel (K6): one block of 4 warps per (bh, 64-key tile); each warp
+//   owns 16 keys.  The block walks the q-tiles in a loop, Q/dO tiles
+//   double-buffered by 16-byte cp.async.  S^T and dP^T are computed
+//   key-major, so P^T and dS^T sit in registers in the C-fragment layout
+//   that is also the A operand of dV += P^T dO and dK += dS^T Q; dV and dK
+//   accumulate in registers for the whole sweep.
 // - dq kernel (K5): one block of 4 warps per (bh, 64-query tile), looping
-//   over the k-tiles as K1 does; dQ stays in registers, written once, no
-//   atomics, so K5 + K6 are deterministic.
+//   over the k-tiles; dQ stays in registers, written once, no atomics, so
+//   K5 + K6 are deterministic.
 // f32 (the VAE's and the DINO ViT's attention, the tiny check and --bf16 0;
 // D <= 512): CUDA cores, 32-key x 32-query tiles and 128 threads per block
 // up to D = 160, 16 x 16 tiles and 256 threads above, so that the four
 // (tile x D) f32 tiles fit the 227 KB of shared memory at D = 512 (133 KB
 // there); P and dS of a tile pair go through shared memory, dK and dV stay
-// in registers (at D = 512, 64 floats per thread).  At D = 512 the five
-// products are 10 S_q S_k D operations on f32 CUDA cores, which bound it.
-// TMA, wgmma and warp specialisation are not used yet.
+// in registers (at D = 512, 64 floats per thread).
 
 #pragma once
 
@@ -52,7 +48,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
 constexpr int kTile = 64;    // bf16: keys per kv block, queries per dq block
 constexpr int kTileF = 32;   // f32: keys and queries per tile
-constexpr int kMaxSmemBytes = 232448;
 
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -169,12 +164,10 @@ struct KvTile {
 };
 
 template <int DP>
-size_t kv_smem_bytes(bool with_dq) {
+size_t kv_smem_bytes() {
   constexpr int LD = DP + 8;
   constexpr int BQ = KvTile<DP>::BQ;
-  size_t bytes = (size_t(2) * kTile + 4 * BQ) * LD * sizeof(bf16) + 4 * BQ * sizeof(float);
-  if (with_dq) bytes += size_t(BQ) * (kTile + 8) * sizeof(bf16);
-  return bytes;
+  return (size_t(2) * kTile + 4 * BQ) * LD * sizeof(bf16) + 4 * BQ * sizeof(float);
 }
 
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): A registers
@@ -189,19 +182,18 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4], c
   a[3] = pack_f(c1[2], c1[3]);
 }
 
-// K4 (DQ = true) and K6 (DQ = false).
-template <int DP, bool DQ>
+// K6.
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 bwd_kv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const bf16* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, float* __restrict__ dq_acc, bf16* __restrict__ dk,
+            const float* __restrict__ delta, bf16* __restrict__ dk,
             bf16* __restrict__ dv, int sq, int sk, int d, float scale, int vec) {
   constexpr int LD = DP + 8;
   constexpr int NT = DP / 8;   // n8 tiles over the head dim
   constexpr int KS = DP / 16;  // k16 steps over the head dim
   constexpr int BQ = KvTile<DP>::BQ;
   constexpr int QT = BQ / 8;   // n8 tiles over the q-tile
-  constexpr int LDS = kTile + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + kTile * LD;
@@ -209,7 +201,6 @@ bwd_kv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   bf16* Gs = Qs + 2 * BQ * LD;  // dO, two buffers
   float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // lse, two buffers
   float* Es = Ls + 2 * BQ;                                  // delta, two buffers
-  bf16* Ss = reinterpret_cast<bf16*>(Es + 2 * BQ);          // dS as [q][key]
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kTile;
@@ -312,44 +303,7 @@ bwd_kv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
       }
     }
 
-    if constexpr (DQ) {
-      // dS (bf16) to shared memory as [q][key], then dQ_tile = dS K_tile.
-#pragma unroll
-      for (int j = 0; j < QT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = j * 8 + 2 * t + e;
-          Ss[col * LDS + kw + g] = __float2bfloat16(dp[j][e]);
-          Ss[col * LDS + kw + g + 8] = __float2bfloat16(dp[j][2 + e]);
-        }
-      }
-      __syncthreads();
-      constexpr int RG = BQ / 16;  // 16-row groups of the q-tile
-      constexpr int CS = 4 / RG;   // warps sharing one row group, split over n8 tiles
-      const int rg = warp % RG, cs = warp / RG;
-      const int qa = q0 + rg * 16 + g, qb2 = qa + 8;
-      float* dqa = dq_acc + (size_t(bh) * sq + qa) * d;
-      float* dqb = dqa + size_t(8) * d;
-      for (int n = cs; n < NT; n += CS) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-          const bf16* ar = Ss + (rg * 16 + g) * LDS + kk * 16 + 2 * t;
-          const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * LDS), ld32(ar + 8), ld32(ar + 8 * LDS + 8)};
-          const bf16* kr = Ks + (kk * 16 + 2 * t) * LD + n * 8 + g;
-          mma16816(acc, a, pack_h(kr[0], kr[LD]), pack_h(kr[8 * LD], kr[9 * LD]));
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n * 8 + 2 * t + e;
-          if (col < d) {
-            if (qa < sq) atomicAdd(dqa + col, acc[e]);
-            if (qb2 < sq) atomicAdd(dqb + col, acc[2 + e]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // this buffer (and Ss) is refilled next
+    __syncthreads();  // this buffer is refilled next
   }
 
   const int ra = k0 + kw + g, rb = ra + 8;
@@ -374,18 +328,18 @@ bwd_kv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   }
 }
 
-template <int DP, bool DQ>
+template <int DP>
 cudaError_t launch_kv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                           const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
-                           int bh, int sq, int sk, int d, float scale, int vec, cudaStream_t st) {
-  const size_t smem = kv_smem_bytes<DP>(DQ);
-  cudaError_t err = cudaFuncSetAttribute(bwd_kv_bf16<DP, DQ>,
+                           const float* lse, const float* delta, void* dk, void* dv, int bh,
+                           int sq, int sk, int d, float scale, int vec, cudaStream_t st) {
+  const size_t smem = kv_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_kv_bf16<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((sk + kTile - 1) / kTile, bh);
-  bwd_kv_bf16<DP, DQ><<<grid, kThreads, smem, st>>>(
+  bwd_kv_bf16<DP><<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, dq_acc, static_cast<bf16*>(dk),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), sq, sk, d, scale, vec);
   return cudaGetLastError();
 }
@@ -601,15 +555,14 @@ __device__ void load_lse_delta(const SmemF& s, const float* lse, const float* de
   }
 }
 
-// kv kernel in f32: one block per (bh, TF-key tile), looping over q-tiles;
-// thread (key = tid / TPR, c = tid % TPR + TPR j) accumulates dK and dV in
-// registers.  With DQ the block also adds dS K of each tile pair into
-// dq_acc with atomicAdd.
-template <class TL, int NJ, bool DQ>  // head dim d <= TPR * NJ
+// kv kernel in f32 (K6): one block per (bh, TF-key tile), looping over
+// q-tiles; thread (key = tid / TPR, c = tid % TPR + TPR j) accumulates dK
+// and dV in registers.
+template <class TL, int NJ>  // head dim d <= TPR * NJ
 __global__ void __launch_bounds__(TL::NTH)
 bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, float* __restrict__ dq_acc, float* __restrict__ dk,
+           const float* __restrict__ delta, float* __restrict__ dk,
            float* __restrict__ dv, int sq, int sk, int d, float scale) {
   constexpr int TF = TL::TF, TPR = TL::TPR;
   extern __shared__ __align__(16) float fsm[];
@@ -643,23 +596,6 @@ bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float
         }
       }
     }
-    if constexpr (DQ) {
-      const int qrow = q0 + row;
-      if (qrow < sq) {
-        float* dst = dq_acc + (size_t(bh) * sq + qrow) * d;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int c = c0 + TPR * j;
-          if (c < d) {
-            float acc = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < TF; ++kk)
-              acc = fmaf(s.S[row * (TF + 1) + kk], s.K[kk * s.ld + c], acc);
-            atomicAdd(dst + c, acc);
-          }
-        }
-      }
-    }
   }
   const int key = k0 + row;
   if (key < sk) {
@@ -674,18 +610,18 @@ bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float
   }
 }
 
-template <class TL, int NJ, bool DQ>
+template <class TL, int NJ>
 cudaError_t launch_kv_f32(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
-                          int bh, int sq, int sk, int d, float scale, cudaStream_t st) {
+                          const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
+                          int sk, int d, float scale, cudaStream_t st) {
   const size_t smem = smem_f_bytes<TL::TF>(d);
-  cudaError_t err = cudaFuncSetAttribute(bwd_kv_f32<TL, NJ, DQ>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_kv_f32<TL, NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((sk + TL::TF - 1) / TL::TF, bh);
-  bwd_kv_f32<TL, NJ, DQ><<<grid, TL::NTH, smem, st>>>(
+  bwd_kv_f32<TL, NJ><<<grid, TL::NTH, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, dq_acc, static_cast<float*>(dk),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), sq, sk, d, scale);
   return cudaGetLastError();
 }
@@ -767,17 +703,16 @@ inline int vec_ok(int d, const void* a, const void* b, const void* c, const void
 constexpr int kMaxHeadDimBf16 = 160;
 constexpr int kMaxHeadDimF32 = 512;
 
-// dK, dV (and with DQ, dQ added into the zeroed f32 dq_acc) for every dtype
-// and head dim the kernels take; cudaErrorInvalidValue otherwise.
-template <bool DQ>
-cudaError_t run_kv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, float* dq_acc, void* dk, void* dv, int bh, int sq, int sk,
-                   int d, float scale, int dtype, cudaStream_t st) {
+// K6: dK, dV for every dtype and head dim the kernels take;
+// cudaErrorInvalidValue otherwise.
+inline cudaError_t run_kv(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
+                          int sk, int d, float scale, int dtype, cudaStream_t st) {
   if (dtype == 1) {
     const int vec = vec_ok(d, q, k, v, dout);
 #define SIDLSG_KV_CASE(DP) \
   if (d <= DP)             \
-    return launch_kv_bf16<DP, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, vec, st);
+    return launch_kv_bf16<DP>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, vec, st);
     SIDLSG_KV_CASE(16)
     SIDLSG_KV_CASE(32)
     SIDLSG_KV_CASE(48)
@@ -789,7 +724,7 @@ cudaError_t run_kv(const void* q, const void* k, const void* v, const void* dout
   }
   if (dtype == 0) {
 #define SIDLSG_KV_F32(TL, NJ) \
-  launch_kv_f32<TL, NJ, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, st)
+  launch_kv_f32<TL, NJ>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, st)
     if (d <= 32) return SIDLSG_KV_F32(TileF32, 8);
     if (d <= 64) return SIDLSG_KV_F32(TileF32, 16);
     if (d <= 160) return SIDLSG_KV_F32(TileF32, 40);

@@ -3,9 +3,10 @@
 // Replace the two kernels of the TPU's sid_lsg_tpu/ops/attention.py:_flash_bwd
 // (the dQ pl.pallas_call, which loops k-blocks per q-block, and the dK/dV
 // one, which loops q-blocks per k-block).  K5 keeps dQ in registers for one
-// q-tile and writes it once; K6 is K4's kv sweep without dQ.  Neither uses
-// atomics, so the pair is deterministic: it is the check on K4.  Each entry
-// runs the delta = rowsum(dO * O) pre-pass first.  The kernels, what bounds
+// q-tile and writes it once; K6 sweeps the q-tiles for one key tile and
+// keeps dK and dV in registers.  Neither uses atomics or reduce-adds, so the
+// pair is deterministic, and it shares only the delta pre-pass with K4: it
+// is the independent check on K4.  Each entry runs the delta = rowsum(dO * O) pre-pass first.  The kernels, what bounds
 // them and their design are in flash_attn_bwd.cuh.
 
 #include "flash_attn_bwd.cuh"
@@ -49,8 +50,8 @@ int sidlsg_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const
   float* dl = static_cast<float*>(delta);
   cudaError_t err = run_delta(out, dout, dl, (long long)bh * sq, d, dtype, st);
   if (err != cudaSuccess) return err;
-  return run_kv<false>(q, k, v, dout, static_cast<const float*>(lse), dl, nullptr, dk, dv, bh, sq,
-                       sk, d, scale, dtype, st);
+  return run_kv(q, k, v, dout, static_cast<const float*>(lse), dl, dk, dv, bh, sq, sk, d, scale,
+                dtype, st);
 }
 
 }  // extern "C"

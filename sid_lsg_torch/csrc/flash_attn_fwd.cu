@@ -6,425 +6,471 @@
 // logsumexp, with the ragged tails of S_q and S_k masked in the kernel.
 //
 // What bounds it on the H100: at the UNet's self-attention (S = 4096/1024,
-// D = 40/80) the two products are 4*S_q*S_k*D operations against
-// (S_q + 2*S_k)*D*2 bytes, far above the card's ~295 operations per byte, so
-// the tensor cores bound it.  At cross-attention (S_k = 77) the products are
-// small and the bytes of q and out bound it.  The VAE's single head (D = 512)
-// runs in f32, where the tensor cores offer only TF32, so it is bounded by
-// the f32 rate of the CUDA cores.
+// D = 40/80) the two products are 4 S_q S_k D operations against
+// (S_q + 2 S_k) D 2 bytes, far above the card's ~295 operations per byte, so
+// the tensor cores bound it (989 TFLOP/s bf16); at D = 40 the exponentials
+// of the softmax (S_q S_k of them against 4 S_q S_k D tensor-core
+// operations) come close to it.  At cross-attention (S_k = 77) the bytes of
+// q and out bound it.  The VAE's single head (D = 512) and the DINO ViT
+// (D = 64) run in f32, which the tensor cores take only as TF32.
 //
 // What the design does about that:
-// - bf16: one block of 4 warps per (bh, 64-row q-tile); each warp owns 16 q
-//   rows.  The block walks the k-tiles (64 keys) in a loop that takes the
-//   place of the TPU's sequential grid axis.  Q K^T and P V run on the tensor
-//   cores as mma.sync m16n8k16 (bf16 in, f32 accumulate).  Scores, the
-//   online-softmax state and the output accumulator stay in registers in the
-//   mma fragment layout: a row's max and sum need two shuffles, and the
-//   score fragments become the A operand of P V without passing through
-//   shared memory.  K/V tiles arrive by 16-byte cp.async into two buffers,
-//   so the next tile streams in while the current one computes.  Nothing of
-//   size S_q x S_k reaches device memory.
-// - f32: one block of 8 warps per (bh, 32-row q-tile); each warp owns four q
-//   rows and each lane one key of the 32-key tile.  Q and K are read from
-//   shared memory 16 bytes at a time (K rows padded so a quarter-warp hits
-//   distinct banks), P is broadcast by shuffles, and the accumulator
-//   (D <= 512) sits in registers.  The tiles take up to 194 KB of dynamic
-//   shared memory, set with cudaFuncSetAttribute, which leaves room for one
-//   buffer: tiles arrive by 16-byte cp.async, all in flight at once.
-// TMA, wgmma and warp specialisation are not used yet; that is work for a
-// later change.
+// - bf16 (D <= 160, d % 8 == 0): one block per (bh, 64 NCW query rows)
+//   of one producer warpgroup and NCW consumer warpgroups (NCW = 3 up to
+//   D = 80, 2 at D = 160).  The producer gives up registers (setmaxnreg
+//   24) and one of its threads issues TMA loads: the Q tile once, then K
+//   and V tiles of 64 keys into a ring of three stages, each stage guarded
+//   by a "full" mbarrier (TMA bytes) and an "empty" one (the consumer
+//   warps).  Each consumer warpgroup (setmaxnreg 160 or 240) owns 64 query
+//   rows: S = Q K^T is one wgmma chain (m64n64k16, Q and K from shared
+//   memory), and the online softmax runs in registers on the accumulator,
+//   on the raw logits (one FMA and one exp2 an element, the key mask only
+//   on a ragged last tile); P, packed to bf16 in registers, is the A
+//   operand of O += P V (m64nDk16), with V read from shared memory through
+//   the descriptor's transpose bit.  Tiles use the 32-byte swizzled
+//   column-block layout of hopper.cuh, so D = 40 and 80 pad only to 48 and
+//   80 (TMA fills the columns past D and the rows past S with zeros; the
+//   padded work counts in the time, never in the bound).  Why these tiles:
+//   64 query rows is one wgmma M; each warpgroup's loop is a serial chain
+//   of wgmma, exponentials (the multi-function unit, about as slow as the
+//   tensor cores at D = 40) and wgmma, so a third warpgroup where the
+//   registers allow it keeps more of that work in flight and reads K and V
+//   once per 192 queries; 64 keys keep S at 32 registers a thread beside O
+//   (up to 80 at D = 160) and P; three stages of K and V (at most 120 KB at
+//   D = 160) plus Q fit the 227 KB of shared memory.
+// - f32 (D <= 512, d % 4 == 0): tensor cores in 3xTF32 (each operand split
+//   into hi = tf32(x) and lo = tf32(x - hi); hi*hi + hi*lo + lo*hi with f32
+//   accumulation on mma.sync m16n8k8), which keeps f32 accuracy.  One block
+//   of 8 warps per (bh, 32 query rows), looping over 32-key tiles: each warp
+//   computes 16 rows x 32 keys of S over a quarter of D (each fragment it
+//   loads and splits feeds several products), the quarters meet in shared
+//   memory, the online softmax runs on 8 threads a row, P goes through
+//   shared memory (32 x 32 f32), and each warp accumulates 32 rows x D/8
+//   columns of O in registers (64 at D = 512).  Q, K and V tiles (194 KB of
+//   the 217 KB at D = 512) arrive by 16-byte cp.async; the next K tile
+//   streams in while P V runs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
 
 namespace {
 
+using namespace hopper;
+
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// ---------------------------------------------------------------- bf16 path
-
-constexpr int MB_BQ = 64;
-constexpr int MB_BK = 64;
-constexpr int MB_THREADS = 128;
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) | (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
+// ---------------------------------------------------------------- bf16 path
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int FB_BK = 64;  // keys a stage
+constexpr int FB_STAGES = 3;
 
-// Q tile, then two K and two V tiles: the next k-tile streams in while the
-// current one computes.
-inline size_t mb_smem_bytes(int dp) { return size_t(5) * MB_BQ * (dp + 8) * sizeof(bf16); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying rows [row0, row0 + 64) of a (rows_total, d) bf16 matrix into
-// shared memory with row stride DP + 8; rows past the end and columns in
-// [d, DP) are 0.  With vec (d % 8 == 0, 16-byte aligned source) the rows move
-// as 16-byte cp.async copies that complete at the next cp_async_wait;
-// otherwise element by element.
+// NCW consumer warpgroups of 64 query rows each and one producer
+// warpgroup.  Three consumers (192 rows) where their registers allow it
+// (D <= 80: S 32, O up to 40 and P 16 registers a thread fit the 128 that
+// ptxas allots each of 512 threads), two at D = 160 (O takes 80; 168 at 384
+// threads): more warps in flight hide the latency of each warpgroup's chain
+// of wgmma, exponentials and wgmma.
 template <int DP>
-__device__ void load_tile_bf16(bf16* dst, const bf16* src, int row0, int rows_total, int d,
-                               bool vec) {
-  constexpr int LD = DP + 8;
-  if (vec) {
-    constexpr int CH = DP / 8;
-    for (int i = threadIdx.x; i < MB_BK * CH; i += blockDim.x) {
-      const int r = i / CH, c = (i % CH) * 8;
-      bf16* to = dst + r * LD + c;
-      if (row0 + r < rows_total && c < d)
-        cp_async16(to, src + size_t(row0 + r) * d + c);
-      else
-        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  } else {
-    for (int i = threadIdx.x; i < MB_BK * DP; i += blockDim.x) {
-      const int r = i / DP, c = i % DP;
-      bf16 val = __float2bfloat16(0.f);
-      if (row0 + r < rows_total && c < d) val = src[size_t(row0 + r) * d + c];
-      dst[r * LD + c] = val;
-    }
-  }
-}
+struct FwdBf16 {
+  static constexpr int NCW = DP <= 80 ? 3 : 2;
+  static constexpr int THREADS = 128 * (NCW + 1);
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NCW == 3 ? 160 : 240;
+  static constexpr int BQ = 64 * NCW;                   // query rows a block
+  static constexpr int NB = DP / 16;                    // column blocks
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = FB_BK * DP * 2;       // one of K, V
+  static constexpr int TILES = Q_BYTES + FB_STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = 1024 + TILES + 8 * (1 + 2 * FB_STAGES);
+};
 
-// DP: head dim rounded up to a multiple of 16 (zero columns beyond d).
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): A registers
-// hold rows g and g+8 at columns 2t, 2t+1 (+8); B registers hold k rows 2t,
-// 2t+1 (+8) of column g; C holds rows g (c0, c1) and g+8 (c2, c3) at columns
-// 2t, 2t+1.
 template <int DP>
-__global__ void __launch_bounds__(MB_THREADS)
-flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                   int sq, int sk, int d, float scale, int vec) {
-  constexpr int LD = DP + 8;  // padded row stride: the fragment loads hit distinct banks
-  constexpr int NT = DP / 8;  // n8 tiles of the output
-  constexpr int KS = DP / 16; // k16 steps of Q K^T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + MB_BQ * LD;      // two buffers
-  bf16* Vs = Ks + 2 * MB_BK * LD;  // two buffers
+__global__ void __launch_bounds__(FwdBf16<DP>::THREADS, 1)
+fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+               float* __restrict__ lse, int sq, int sk, int d, float scale_log2) {
+  using C = FwdBf16<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const uint32_t sQ = smem_u32(base);
+  const uint32_t bars = sQ + C::TILES;
+  const uint32_t q_full = bars;
+  auto sK = [&](int s) { return sQ + C::Q_BYTES + s * 2 * C::KV_BYTES; };
+  auto sV = [&](int s) { return sK(s) + C::KV_BYTES; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + FB_STAGES + s); };
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * MB_BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const bf16* kb = k + size_t(bh) * sk * d;
-  const bf16* vb = v + size_t(bh) * sk * d;
-
-  load_tile_bf16<DP>(Qs, q + size_t(bh) * sq * d, q0, sq, d, vec);
-  load_tile_bf16<DP>(Ks, kb, 0, sk, d, vec);
-  load_tile_bf16<DP>(Vs, vb, 0, sk, d, vec);
-  cp_async_commit();
-
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_a = kNegInf, m_b = kNegInf;  // rows g and g+8 of this warp
-  float l_a = 0.f, l_b = 0.f;          // this lane's share of the row sums
-
-  const int ntiles = (sk + MB_BK - 1) / MB_BK;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * MB_BK;
-    const bf16* Kt = Ks + (it & 1) * MB_BK * LD;
-    const bf16* Vt = Vs + (it & 1) * MB_BK * LD;
-    if (it + 1 < ntiles) {  // the other buffer was released by the barrier ending it - 1
-      load_tile_bf16<DP>(Ks + ((it + 1) & 1) * MB_BK * LD, kb, k0 + MB_BK, sk, d, vec);
-      load_tile_bf16<DP>(Vs + ((it + 1) & 1) * MB_BK * LD, vb, k0 + MB_BK, sk, d, vec);
+  const int q0 = blockIdx.x * C::BQ;
+  const int nk = (sk + FB_BK - 1) / FB_BK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < FB_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * C::NCW);  // one arrival per consumer warp
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the tile just started has landed
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-    float s[MB_BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < MB_BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const bf16* qa = Qs + (wr + g) * LD + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8), ld32(qa + 8 * LD + 8)};
-#pragma unroll
-      for (int j = 0; j < MB_BK / 8; ++j) {
-        const bf16* kr = Kt + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16_16816(s[j], a, ld32(kr), ld32(kr + 8));
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < C::NB; ++c) tma_load_3d(sQ + c * C::BQ * 32, &tq, q_full, c * 16, q0, bh);
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % FB_STAGES;
+        if (it >= FB_STAGES) mbar_wait(empty(s), ((it / FB_STAGES) - 1) & 1);
+        mbar_arrive_tx(full(s), 2 * C::KV_BYTES);
+        for (int c = 0; c < C::NB; ++c) {
+          tma_load_3d(sK(s) + c * FB_BK * 32, &tk, full(s), c * 16, it * FB_BK, bh);
+          tma_load_3d(sV(s) + c * FB_BK * 32, &tv, full(s), c * 16, it * FB_BK, bh);
+        }
       }
     }
+    return;
+  }
 
+  // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf;  // rows g and g + 8 of this warp, raw logits
+  float l_a = 0.f, l_b = 0.f;          // this thread's share of the row sums
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % FB_STAGES;
+    mbar_wait(full(s), (it / FB_STAGES) & 1);
+    float sc[FB_BK / 2];
+#pragma unroll
+    for (int i = 0; i < FB_BK / 2; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::NB; ++kk)
+      WgmmaSS<FB_BK, 0, 0>::run(sc, desc_kmajor(sQ + kk * C::BQ * 32 + cw * 64 * 32),
+                                desc_kmajor(sK(s) + kk * FB_BK * 32), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // The softmax state is kept on the raw logits (m in units of q.k);
+    // p = exp2(s * scale log2(e) - m * scale log2(e)) is one FMA and one
+    // exp2.  Only the last tile of a ragged S_k needs the key mask.
+    const int k0 = it * FB_BK;
+    if (k0 + FB_BK > sk) {
+#pragma unroll
+      for (int j = 0; j < FB_BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = k0 + j * 8 + 2 * t + e < sk;
+          sc[4 * j + e] = ok ? sc[4 * j + e] : kNegInf;
+          sc[4 * j + 2 + e] = ok ? sc[4 * j + 2 + e] : kNegInf;
+        }
+    }
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int j = 0; j < MB_BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = k0 + j * 8 + 2 * t + e < sk;
-        s[j][e] = ok ? s[j][e] * scale : kNegInf;
-        s[j][2 + e] = ok ? s[j][2 + e] * scale : kNegInf;
-        mx_a = fmaxf(mx_a, s[j][e]);
-        mx_b = fmaxf(mx_b, s[j][2 + e]);
-      }
+    for (int j = 0; j < FB_BK / 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
     mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
     mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
     mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
     mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+    const float al_a = exp2f((m_a - mn_a) * scale_log2), al_b = exp2f((m_b - mn_b) * scale_log2);
     m_a = mn_a;
     m_b = mn_b;
-
-    uint32_t p[MB_BK / 16][4];  // P as the A operand of P V
+    const float ms_a = m_a * scale_log2, ms_b = m_b * scale_log2;
+    uint32_t pa[FB_BK / 16][4];
     float ls_a = 0.f, ls_b = 0.f;
 #pragma unroll
-    for (int j = 0; j < MB_BK / 8; ++j) {
-      const float p0 = expf(s[j][0] - m_a), p1 = expf(s[j][1] - m_a);
-      const float p2 = expf(s[j][2] - m_b), p3 = expf(s[j][3] - m_b);
+    for (int j = 0; j < FB_BK / 8; ++j) {
+      const float p0 = exp2f(fmaf(sc[4 * j], scale_log2, -ms_a));
+      const float p1 = exp2f(fmaf(sc[4 * j + 1], scale_log2, -ms_a));
+      const float p2 = exp2f(fmaf(sc[4 * j + 2], scale_log2, -ms_b));
+      const float p3 = exp2f(fmaf(sc[4 * j + 3], scale_log2, -ms_b));
       ls_a += p0 + p1;
       ls_b += p2 + p3;
-      p[j / 2][(j % 2) * 2] = pack2(p0, p1);
-      p[j / 2][(j % 2) * 2 + 1] = pack2(p2, p3);
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
     l_a = l_a * al_a + ls_a;
     l_b = l_b * al_b + ls_b;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= al_a;
-      o[n][1] *= al_a;
-      o[n][2] *= al_b;
-      o[n][3] *= al_b;
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= al_a;
+      o[4 * j + 1] *= al_a;
+      o[4 * j + 2] *= al_b;
+      o[4 * j + 3] *= al_b;
     }
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < MB_BK / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* vr = Vt + (kk * 16 + 2 * t) * LD + n * 8 + g;
-        mma_bf16_16816(o[n], p[kk], pack2(vr[0], vr[LD]), pack2(vr[8 * LD], vr[9 * LD]));
-      }
-    }
-    __syncthreads();  // this buffer is refilled at it + 2
+    for (int kk = 0; kk < FB_BK / 16; ++kk)
+      WgmmaRS<DP, 1>::run(o, pa[kk], desc_mnmajor(sV(s) + kk * 16 * 32, FB_BK), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
   }
 
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const int ra = q0 + wr + g, rb = ra + 8;
+  const int ra = q0 + cw * 64 + warp * 16 + g, rb = ra + 8;
+  const float ia = 1.f / l_a, ib = 1.f / l_b;
   bf16* ob = out + size_t(bh) * sq * d;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = n * 8 + 2 * t + e;
-      if (col < d) {
-        if (ra < sq) ob[size_t(ra) * d + col] = __float2bfloat16(o[n][e] / l_a);
-        if (rb < sq) ob[size_t(rb) * d + col] = __float2bfloat16(o[n][2 + e] / l_b);
-      }
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (col < d) {
+      if (ra < sq)
+        *reinterpret_cast<uint32_t*>(ob + size_t(ra) * d + col) = pack_bf16(o[4 * j] * ia, o[4 * j + 1] * ia);
+      if (rb < sq)
+        *reinterpret_cast<uint32_t*>(ob + size_t(rb) * d + col) =
+            pack_bf16(o[4 * j + 2] * ib, o[4 * j + 3] * ib);
     }
   }
   if (t == 0) {
-    if (ra < sq) lse[size_t(bh) * sq + ra] = m_a + logf(l_a);
-    if (rb < sq) lse[size_t(bh) * sq + rb] = m_b + logf(l_b);
+    if (ra < sq) lse[size_t(bh) * sq + ra] = (m_a * scale_log2 + log2f(l_a)) * kLn2;
+    if (rb < sq) lse[size_t(bh) * sq + rb] = (m_b * scale_log2 + log2f(l_b)) * kLn2;
   }
 }
 
 template <int DP>
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int bh,
-                        int sq, int sk, int d, float scale, int vec, cudaStream_t stream) {
-  const size_t smem = mb_smem_bytes(DP);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_mma<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                        int sq, int sk, int d, float scale, cudaStream_t st) {
+  using C = FwdBf16<DP>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = tensor_map_bf16(&tq, q, bh, sq, d, C::BQ);
+  if (err == cudaSuccess) err = tensor_map_bf16(&tk, k, bh, sk, d, FB_BK);
+  if (err == cudaSuccess) err = tensor_map_bf16(&tv, v, bh, sk, d, FB_BK);
+  // Once per instantiation: the register check and the shared-memory limit.
+  static const cudaError_t prepared = [] {
+    const cudaError_t e = check_ws_regs(reinterpret_cast<const void*>(fwd_bf16_wgmma<DP>), C::NCW,
+                                        C::PRODUCER_REGS, C::CONSUMER_REGS);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(fwd_bf16_wgmma<DP>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   C::SMEM);
+  }();
+  if (err == cudaSuccess) err = prepared;
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + MB_BQ - 1) / MB_BQ, bh);
-  flash_fwd_bf16_mma<DP><<<grid, MB_THREADS, smem, stream>>>(q, k, v, out, lse, sq, sk, d, scale,
-                                                             vec);
+  const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
+  fwd_bf16_wgmma<DP><<<grid, C::THREADS, C::SMEM, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), lse, sq, sk, d, scale * kLog2e);
   return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32 path
 
-constexpr int SF_BQ = 32;
-constexpr int SF_BK = 32;
-constexpr int SF_THREADS = 256;
-constexpr int SF_ROWS = SF_BQ / (SF_THREADS / 32);  // q rows per warp
+constexpr int FF_BQ = 32;
+constexpr int FF_BK = 32;
+constexpr int FF_THREADS = 256;
 
-inline int round4(int x) { return (x + 3) / 4 * 4; }
+template <int DP>  // head dim padded to a multiple of 64
+struct FwdF32 {
+  static constexpr int LQ = DP + 4;  // Q, K row stride: (g, t) fragment loads hit distinct banks
+  static constexpr int LV = DP + 8;  // V row stride: (t, g) fragment loads hit distinct banks
+  static constexpr int LP = FF_BK + 4;
+  static constexpr size_t SMEM =
+      sizeof(float) * (size_t(FF_BQ) * LQ + size_t(FF_BK) * LQ + size_t(FF_BK) * LV +
+                       size_t(5) * FF_BQ * LP + 2 * FF_BQ);
+};
 
-inline size_t sf_smem_bytes(int d) {
-  const int d4 = round4(d);
-  return sizeof(float) * (size_t(SF_BQ) * d4 + size_t(SF_BK) * (d4 + 4) + size_t(SF_BK) * d4);
-}
-
-// Rows [row0, row0 + nrows) of a (rows_total, d) f32 matrix into shared
-// memory with row stride ld, zero past the end and in columns [d, round4(d)).
-// With vec (d % 4 == 0, 16-byte aligned source) each warp moves whole rows as
-// 16-byte cp.async copies, which complete at the next cp_async_wait.
-__device__ void load_tile_f32(float* dst, int ld, const float* src, int row0, int rows_total,
-                              int nrows, int d, bool vec) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
-  if (vec) {
-    for (int r = warp; r < nrows; r += nwarps) {
-      const bool ok = row0 + r < rows_total;
-      for (int c = lane * 4; c < d; c += 128) {
-        if (ok)
-          cp_async16(dst + r * ld + c, src + size_t(row0 + r) * d + c);
-        else
-          *reinterpret_cast<float4*>(dst + r * ld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  } else {
-    const int d4 = (d + 3) / 4 * 4;
-    for (int r = warp; r < nrows; r += nwarps)
-      for (int c = lane; c < d4; c += 32)
-        dst[r * ld + c] = (row0 + r < rows_total && c < d) ? src[size_t(row0 + r) * d + c] : 0.f;
-  }
-}
-
-template <int NJ>  // head dim d <= 32 * NJ
-__global__ void __launch_bounds__(SF_THREADS)
-flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
-                   int sq, int sk, int d, float scale, int vec) {
+// S: warp w computes the 16 x 32 rows 16 (w & 1) of S over a quarter
+// (w >> 1) of D, so that each A fragment it splits feeds four products; the
+// quarters meet in shared memory.  The softmax then runs on 8 threads a row
+// (4 keys each).  P V: warp w holds all 32 rows of O's columns w D / 8 ..
+// in registers, so that each V fragment it splits feeds two products.
+template <int DP>
+__global__ void __launch_bounds__(FF_THREADS, 1)
+fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+               int sq, int sk, int d, float scale_log2) {
+  using C = FwdF32<DP>;
+  constexpr int NTO = DP / 64;  // n8 tiles of O a warp, in each of its two 16-row halves
+  constexpr int LP = C::LP;
   extern __shared__ __align__(16) float fsm[];
-  const int d4 = (d + 3) / 4 * 4;  // Q/V row stride, zero columns beyond d
-  const int ldk = d4 + 4;          // K row stride: a quarter-warp's float4 loads hit distinct banks
   float* Qs = fsm;
-  float* Ks = Qs + SF_BQ * d4;
-  float* Vs = Ks + SF_BK * ldk;
+  float* Ks = Qs + FF_BQ * C::LQ;
+  float* Vs = Ks + FF_BK * C::LQ;
+  float* Ps = Vs + FF_BK * C::LV;    // P, (queries, keys)
+  float* RED = Ps + FF_BQ * LP;      // partial S over quarters of D, (4, queries, keys)
+  float* ALPHA = RED + 4 * FF_BQ * LP;  // per row: the rescale of O for this tile
+  float* LROW = ALPHA + FF_BQ;          // per row: the softmax denominator
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * SF_BQ;
+  const int q0 = blockIdx.x * FF_BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * SF_ROWS;  // this warp's first q row in the tile
-  const float* qb = q + size_t(bh) * sq * d;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 1, kq = warp >> 1;
+  const int r_a = mt * 16 + g, r_b = r_a + 8;
+  const int oc0 = warp * (DP / 8);  // first O column of this warp (all 32 rows)
+  const int srow = threadIdx.x >> 3, sc0 = (threadIdx.x & 7) * 4;  // softmax: row, first key
   const float* kb = k + size_t(bh) * sk * d;
   const float* vb = v + size_t(bh) * sk * d;
 
-  load_tile_f32(Qs, d4, qb, q0, sq, SF_BQ, d, vec);
-  float acc[SF_ROWS][NJ];
-  float m[SF_ROWS], l[SF_ROWS];
-#pragma unroll
-  for (int i = 0; i < SF_ROWS; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
+  load_rows_f32<FF_BQ, DP>(Qs, C::LQ, q + size_t(bh) * sq * d, q0, sq, d);
+  load_rows_f32<FF_BK, DP>(Ks, C::LQ, kb, 0, sk, d);
+  cp_async_commit_group();
+  load_rows_f32<FF_BK, DP>(Vs, C::LV, vb, 0, sk, d);
+  cp_async_commit_group();
 
-  for (int k0 = 0; k0 < sk; k0 += SF_BK) {
-    __syncthreads();  // previous tile consumed
-    load_tile_f32(Ks, ldk, kb, k0, sk, SF_BK, d, vec);
-    load_tile_f32(Vs, d4, vb, k0, sk, SF_BK, d, vec);
-    cp_async_commit();
-    cp_async_wait<0>();  // this tile (and Q on the first pass) has landed
+  float o[2][NTO][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NTO; ++j) o[m][j][0] = o[m][j][1] = o[m][j][2] = o[m][j][3] = 0.f;
+  float m_row = kNegInf, l_row = 0.f;  // softmax state of row srow (l: this thread's 4 keys)
+
+  const int nk = (sk + FF_BK - 1) / FF_BK;
+  for (int it = 0; it < nk; ++it) {
+    const int k0 = it * FF_BK;
+    cp_async_wait_group<1>();  // K (and Q) landed; V may be in flight
     __syncthreads();
-
-    float s[SF_ROWS];
+    {
+      float s[4][4];
 #pragma unroll
-    for (int i = 0; i < SF_ROWS; ++i) s[i] = 0.f;
-    const float* kr = Ks + lane * ldk;
-    for (int c = 0; c < d4; c += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+      for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < DP / 32; ++kk) {
+        const int kc = kq * (DP / 4) + kk * 8 + t;
+        const float* qa = Qs + r_a * C::LQ + kc;
+        Tf32Frag a;
+        load_frag(a, qa[0], qa[8 * C::LQ], qa[4], qa[8 * C::LQ + 4]);
 #pragma unroll
-      for (int i = 0; i < SF_ROWS; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (r0 + i) * d4 + c);
-        s[i] = fmaf(qv.x, kv.x, s[i]);
-        s[i] = fmaf(qv.y, kv.y, s[i]);
-        s[i] = fmaf(qv.z, kv.z, s[i]);
-        s[i] = fmaf(qv.w, kv.w, s[i]);
+        for (int n = 0; n < 4; ++n) {
+          const float* kr = Ks + (n * 8 + g) * C::LQ + kc;
+          mma_3xtf32(s[n], a, kr[0], kr[4]);
+        }
+      }
+      float* part = RED + kq * FF_BQ * LP;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        *reinterpret_cast<float2*>(part + r_a * LP + n * 8 + 2 * t) = make_float2(s[n][0], s[n][1]);
+        *reinterpret_cast<float2*>(part + r_b * LP + n * 8 + 2 * t) = make_float2(s[n][2], s[n][3]);
       }
     }
-    const bool valid = k0 + lane < sk;
-    float p[SF_ROWS];
+    __syncthreads();  // K consumed, partial S posted
+    if (it + 1 < nk) load_rows_f32<FF_BK, DP>(Ks, C::LQ, kb, k0 + FF_BK, sk, d);
+    cp_async_commit_group();
+    {
+      float x[4];
+      float mx = kNegInf;
 #pragma unroll
-    for (int i = 0; i < SF_ROWS; ++i) {
-      const float si = valid ? s[i] * scale : kNegInf;
-      const float mn = fmaxf(m[i], warp_max(si));
-      const float al = expf(m[i] - mn);
-      p[i] = expf(si - mn);
-      float ps = p[i];
+      for (int e = 0; e < 4; ++e) {
+        float sum = 0.f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      l[i] = l[i] * al + ps;
-      m[i] = mn;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= al;
-    }
-    for (int c = 0; c < SF_BK; ++c) {
-      float vv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = lane + 32 * j;
-        vv[j] = col < d4 ? Vs[c * d4 + col] : 0.f;
+        for (int w = 0; w < 4; ++w) sum += RED[w * FF_BQ * LP + srow * LP + sc0 + e];
+        x[e] = k0 + sc0 + e < sk ? sum * scale_log2 : kNegInf;
+        mx = fmaxf(mx, x[e]);
       }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m_row, mx);
+      const float al = exp2f(m_row - mn);
+      m_row = mn;
+      float4 p;
+      p.x = exp2f(x[0] - mn);
+      p.y = exp2f(x[1] - mn);
+      p.z = exp2f(x[2] - mn);
+      p.w = exp2f(x[3] - mn);
+      l_row = l_row * al + (p.x + p.y) + (p.z + p.w);
+      *reinterpret_cast<float4*>(Ps + srow * LP + sc0) = p;
+      if ((threadIdx.x & 7) == 0) ALPHA[srow] = al;
+    }
+    cp_async_wait_group<1>();  // V landed; the next K may be in flight
+    __syncthreads();     // P and the rescales complete
 #pragma unroll
-      for (int i = 0; i < SF_ROWS; ++i) {
-        const float pc = __shfl_sync(0xffffffffu, p[i], c);
+    for (int m = 0; m < 2; ++m) {
+      const float al_a = ALPHA[m * 16 + g], al_b = ALPHA[m * 16 + g + 8];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pc, vv[j], acc[i][j]);
+      for (int j = 0; j < NTO; ++j) {
+        o[m][j][0] *= al_a;
+        o[m][j][1] *= al_a;
+        o[m][j][2] *= al_b;
+        o[m][j][3] *= al_b;
       }
     }
+#pragma unroll
+    for (int kk = 0; kk < FF_BK / 8; ++kk) {
+      Tf32Frag a[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* pr = Ps + (m * 16 + g) * LP + kk * 8 + t;
+        load_frag(a[m], pr[0], pr[8 * LP], pr[4], pr[8 * LP + 4]);
+      }
+      const float* vr = Vs + (kk * 8 + t) * C::LV + oc0 + g;
+#pragma unroll
+      for (int j = 0; j < NTO; ++j) {
+        uint32_t b[4];
+        split_b(b, vr[j * 8], vr[4 * C::LV + j * 8]);
+        mma_3xtf32(o[0][j], a[0], b);
+        mma_3xtf32(o[1][j], a[1], b);
+      }
+    }
+    __syncthreads();  // V, P and the rescales consumed
+    if (it + 1 < nk) load_rows_f32<FF_BK, DP>(Vs, C::LV, vb, k0 + FF_BK, sk, d);
+    cp_async_commit_group();
   }
 
+  // Row sums over the row's 8 threads, to shared memory for the O warps.
+  l_row += __shfl_xor_sync(0xffffffffu, l_row, 1);
+  l_row += __shfl_xor_sync(0xffffffffu, l_row, 2);
+  l_row += __shfl_xor_sync(0xffffffffu, l_row, 4);
+  if ((threadIdx.x & 7) == 0) LROW[srow] = l_row;
+  __syncthreads();
   float* ob = out + size_t(bh) * sq * d;
 #pragma unroll
-  for (int i = 0; i < SF_ROWS; ++i) {
-    const int row = q0 + r0 + i;
-    if (row >= sq) continue;
+  for (int m = 0; m < 2; ++m) {
+    const int ra = q0 + m * 16 + g, rb = ra + 8;
+    const float ia = 1.f / LROW[m * 16 + g], ib = 1.f / LROW[m * 16 + g + 8];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = lane + 32 * j;
-      if (col < d) ob[size_t(row) * d + col] = acc[i][j] / l[i];
+    for (int j = 0; j < NTO; ++j) {
+      const int col = oc0 + j * 8 + 2 * t;
+      if (col < d) {
+        if (ra < sq)
+          *reinterpret_cast<float2*>(ob + size_t(ra) * d + col) =
+              make_float2(o[m][j][0] * ia, o[m][j][1] * ia);
+        if (rb < sq)
+          *reinterpret_cast<float2*>(ob + size_t(rb) * d + col) =
+              make_float2(o[m][j][2] * ib, o[m][j][3] * ib);
+      }
     }
-    if (lane == 0) lse[size_t(bh) * sq + row] = m[i] + logf(l[i]);
   }
+  if ((threadIdx.x & 7) == 0 && q0 + srow < sq)
+    lse[size_t(bh) * sq + q0 + srow] = (m_row + log2f(l_row)) * kLn2;
 }
 
-template <int NJ>
-cudaError_t launch_f32(const float* q, const float* k, const float* v, float* out, float* lse,
-                       int bh, int sq, int sk, int d, float scale, int vec, cudaStream_t stream) {
-  const size_t smem = sf_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_simt<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + SF_BQ - 1) / SF_BQ, bh);
-  flash_fwd_f32_simt<NJ><<<grid, SF_THREADS, smem, stream>>>(q, k, v, out, lse, sq, sk, d, scale,
-                                                             vec);
+template <int DP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                       int sq, int sk, int d, float scale, cudaStream_t st) {
+  const size_t smem = FwdF32<DP>::SMEM;
+  static const cudaError_t prepared = cudaFuncSetAttribute(
+      fwd_f32_tf32x3<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (prepared != cudaSuccess) return prepared;
+  const dim3 grid((sq + FF_BQ - 1) / FF_BQ, bh);
+  fwd_f32_tf32x3<DP><<<grid, FF_THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, sq, sk, d, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -433,26 +479,24 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* ou
 extern "C" {
 
 // q: (bh, sq, d), k/v: (bh, sk, d), out: (bh, sq, d) in the input dtype, lse:
-// (bh, sq) f32, all contiguous.  dtype: 0 = f32, 1 = bf16.  Returns a
-// cudaError_t; cudaErrorInvalidValue for a shape or dtype the kernel does not
-// take (bf16 with d > 160, f32 with d > 512).  The bf16 head dims are built
-// for the presets' heads (16 and 32 tiny, 40/80/160 SD1.5, 64 SD2.1-base);
-// another d pads up to the next built one.
+// (bh, sq) f32, all contiguous and 16-byte aligned.  dtype: 0 = f32, 1 =
+// bf16.  Returns a cudaError_t; cudaErrorInvalidValue for what the kernels
+// do not take: bf16 needs d % 8 == 0 and d <= 160, f32 d % 4 == 0 and
+// d <= 512 (the wrapper pads other head dims with zero columns).  The bf16
+// head dims are built for the presets' heads (16 and 32 tiny, 40/80/160
+// SD1.5, 64 SD2.1-base); another d pads up to the next built one in shared
+// memory, where TMA fills the columns past d with zeros.
 int sidlsg_flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                           int bh, int sq, int sk, int d, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0) return cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || bh > 65535) return cudaErrorInvalidValue;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v);
-  if (dtype == 1) {
-    const bf16* qh = static_cast<const bf16*>(q);
-    const bf16* kh = static_cast<const bf16*>(k);
-    const bf16* vh = static_cast<const bf16*>(v);
-    bf16* oh = static_cast<bf16*>(out);
-    float* lf = static_cast<float*>(lse);
-    const int vec = (d % 8 == 0) && (addr % 16 == 0);
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (addr % 16 != 0) return cudaErrorInvalidValue;
+  float* lf = static_cast<float*>(lse);
+  if (dtype == 1 && d % 8 == 0) {
 #define SIDLSG_BF16_CASE(DP) \
-  if (d <= DP) return launch_bf16<DP>(qh, kh, vh, oh, lf, bh, sq, sk, d, scale, vec, st);
+  if (d <= DP) return launch_bf16<DP>(q, k, v, out, lf, bh, sq, sk, d, scale, st);
     SIDLSG_BF16_CASE(16)
     SIDLSG_BF16_CASE(32)
     SIDLSG_BF16_CASE(48)
@@ -460,22 +504,34 @@ int sidlsg_flash_attn_fwd(const void* q, const void* k, const void* v, void* out
     SIDLSG_BF16_CASE(80)
     SIDLSG_BF16_CASE(160)
 #undef SIDLSG_BF16_CASE
-    return cudaErrorInvalidValue;
   }
-  if (dtype == 0) {
-    if (sf_smem_bytes(d) > size_t(kMaxSmem)) return cudaErrorInvalidValue;
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    float* of = static_cast<float*>(out);
-    float* lf = static_cast<float*>(lse);
-    const int vec = (d % 4 == 0) && (addr % 16 == 0);
-    if (d <= 64) return launch_f32<2>(qf, kf, vf, of, lf, bh, sq, sk, d, scale, vec, st);
-    if (d <= 128) return launch_f32<4>(qf, kf, vf, of, lf, bh, sq, sk, d, scale, vec, st);
-    if (d <= 256) return launch_f32<8>(qf, kf, vf, of, lf, bh, sq, sk, d, scale, vec, st);
-    if (d <= 512) return launch_f32<16>(qf, kf, vf, of, lf, bh, sq, sk, d, scale, vec, st);
+  if (dtype == 0 && d % 4 == 0) {
+    if (d <= 64) return launch_f32<64>(q, k, v, out, lf, bh, sq, sk, d, scale, st);
+    if (d <= 192) return launch_f32<192>(q, k, v, out, lf, bh, sq, sk, d, scale, st);
+    if (d <= 320) return launch_f32<320>(q, k, v, out, lf, bh, sq, sk, d, scale, st);
+    if (d <= 512) return launch_f32<512>(q, k, v, out, lf, bh, sq, sk, d, scale, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory a launch of sidlsg_flash_attn_fwd takes at this
+// dtype and head dim (-1 where it does not launch).
+int sidlsg_flash_attn_fwd_smem(int dtype, int d) {
+  if (dtype == 1 && d % 8 == 0) {
+    if (d <= 16) return FwdBf16<16>::SMEM;
+    if (d <= 32) return FwdBf16<32>::SMEM;
+    if (d <= 48) return FwdBf16<48>::SMEM;
+    if (d <= 64) return FwdBf16<64>::SMEM;
+    if (d <= 80) return FwdBf16<80>::SMEM;
+    if (d <= 160) return FwdBf16<160>::SMEM;
+  }
+  if (dtype == 0 && d % 4 == 0) {
+    if (d <= 64) return int(FwdF32<64>::SMEM);
+    if (d <= 192) return int(FwdF32<192>::SMEM);
+    if (d <= 320) return int(FwdF32<320>::SMEM);
+    if (d <= 512) return int(FwdF32<512>::SMEM);
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -16,6 +16,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,7 +29,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libsidlsg_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas -v: each kernel's registers, shared memory and spills go to build.log.
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,19 +44,21 @@ _SIGNATURES = {
     "sidlsg_flash_attn_bwd_dq": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_flash_attn_bwd_dkv": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_bias_act": [_P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _I, _P],
+    "sidlsg_flash_attn_fwd_smem": [_I, _I],
+    "sidlsg_flash_attn_bwd_smem": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list:
+    return sorted(csrc.glob("*.cu"))
 
 
-def source_key() -> str:
+def source_key(csrc: Path = CSRC) -> str:
     """Hash of the kernel sources, their headers and the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources() + sorted(CSRC.glob("*.cuh")):
+    for src in sources(csrc) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -73,9 +77,10 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
-    """Compile the kernels if this source hash has no library yet; return its path."""
-    out_dir = BUILD_ROOT / source_key()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of ``csrc`` if this source hash has no library yet;
+    return its path."""
+    out_dir = BUILD_ROOT / source_key(csrc)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
@@ -85,7 +90,7 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building the same hash
         if lib_path.exists():
             return lib_path
-        srcs = sources()
+        srcs = sources(csrc)
         objs = [out_dir / (src.stem + ".o") for src in srcs]
         procs = [
             subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
@@ -106,19 +111,48 @@ def build() -> Path:
     return lib_path
 
 
+def load(lib_path: Path, required: bool = True) -> ctypes.CDLL:
+    """Load a kernel library and declare its C entries; with ``required``
+    False, entries the library lacks (an older checkout's) are skipped."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        if not required and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sidlsg_error_string.argtypes = [ctypes.c_int]
+    lib.sidlsg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.sidlsg_error_string.argtypes = [ctypes.c_int]
-        lib.sidlsg_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build())
     return _lib
+
+
+def ptxas_report(lib_path: Path) -> list:
+    """(kernel, registers, spill stores, spill loads) per compiled kernel,
+    from the ``-Xptxas -v`` lines of the build log beside ``lib_path``.
+    Mangled names are kept; ``c++filt`` demangles them."""
+    rows, name, spill = [], None, (0, 0)
+    for line in (lib_path.parent / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1))) + spill)
+            name = None
+    return rows
 
 
 def check(err: int, what: str) -> None:

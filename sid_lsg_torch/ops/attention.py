@@ -33,6 +33,9 @@ from ._build import check, dtype_code, library, use_kernel
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = {torch.bfloat16: 160, torch.float32: 512}  # K1, K4, K5, K6
+# K1 and K4 read rows by TMA (bf16) or 16-byte copies (f32): a row of the
+# head dim they are given is a multiple of 16 bytes.
+HEAD_DIM_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -82,6 +85,23 @@ def _check_qkv(what: str, q, k, v, max_d: int) -> None:
         raise ValueError(f"{what}: head dim {q.shape[3]} exceeds {max_d} for {q.dtype}")
 
 
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim K1 and K4 are given for head dim ``d``: ``d`` rounded up
+    to a row of 16 bytes (the wrapper pads q, k, v, out and dout with zero
+    columns, which change neither scores nor the first ``d`` columns)."""
+    m = HEAD_DIM_MULTIPLE[dtype]
+    return -(-d // m) * m
+
+
+def _kernel_operand(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` contiguous, zero-padded to head dim ``d`` and 16-byte aligned,
+    as the kernels' TMA and 16-byte copies read it."""
+    if t.shape[-1] != d:
+        t = torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Non-causal attention over (B, H, S, D); returns (out, f32 lse (B, H, S_q)).
@@ -97,16 +117,17 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = dtype_code(q)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    dk = kernel_head_dim(d, q.dtype)
+    qc, kc, vc = (_kernel_operand(t, dk) for t in (q, k, v))
     out = torch.empty_like(qc)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = library().sidlsg_flash_attn_fwd(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b * h, sq, sk, d, float(scale), code, stream)
+        b * h, sq, sk, dk, float(scale), code, stream)
     check(err, "flash_attn_fwd")
     registry.record("flash_attn_fwd", (tuple(q.shape), tuple(k.shape), str(q.dtype)))
-    return out, lse
+    return (out if dk == d else out[..., :d]), lse
 
 
 def _bwd_inputs(what, q, k, v, out, lse, dout):
@@ -128,8 +149,10 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)
     q, k, v, out, lse, dout = _bwd_inputs("flash_attn_bwd", q, k, v, out, lse, dout)
-    b, h, sq, d = q.shape
+    b, h, sq, d_in = q.shape
     sk = k.shape[2]
+    d = kernel_head_dim(d_in, q.dtype)
+    q, k, v, out, dout = (_kernel_operand(t, d) for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
@@ -140,7 +163,9 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
         delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b * h, sq, sk, d, float(scale), dtype_code(q), stream)
     check(err, "flash_attn_bwd")
-    registry.record("flash_attn_bwd", (tuple(q.shape), tuple(k.shape), str(q.dtype)))
+    registry.record("flash_attn_bwd", ((b, h, sq, d_in), (b, h, sk, d_in), str(q.dtype)))
+    if d != d_in:
+        return dq[..., :d_in], dk[..., :d_in], dv[..., :d_in]
     return dq, dk, dv
 
 

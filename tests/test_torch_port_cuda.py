@@ -172,6 +172,63 @@ def test_flash_attn_bwd_twopass_is_deterministic_and_agrees_with_fused(dev):
         assert_close(z.float() * c, x.float() * c, torch.bfloat16)
 
 
+# The tile edges of K1 and K4: S_q and S_k that are not multiples of their
+# tiles (bf16: 128 queries and 64 keys in K1, 128 keys and 64 queries in K4;
+# f32: 32 / 32 in K1, 32 keys and 16 queries in K4), bh below and above the
+# 132 SMs, and every head dim the presets reach (bf16 40/64/80/160; f32
+# 64/300/512; 36 pads to 40 in the wrapper).
+EDGE_SHAPES = [
+    (torch.bfloat16, 1, 1, 77, 77, 40),
+    (torch.bfloat16, 2, 100, 197, 300, 64),
+    (torch.bfloat16, 1, 3, 4097, 77, 80),
+    (torch.bfloat16, 1, 2, 300, 4097, 160),
+    (torch.bfloat16, 3, 50, 64, 64, 160),
+    (torch.bfloat16, 1, 4, 129, 65, 36),
+    (torch.float32, 4, 6, 197, 197, 64),
+    (torch.float32, 1, 140, 77, 33, 64),
+    (torch.float32, 2, 1, 300, 4097, 300),
+    (torch.float32, 1, 1, 4097, 1000, 512),
+]
+
+
+@pytest.mark.parametrize("dtype,b,h,sq,sk,d", EDGE_SHAPES)
+def test_flash_attn_kernels_at_tile_edges(dev, dtype, b, h, sq, sk, d):
+    args, ref = bwd_case(dev, dtype, b, h, sq, sk, d, seed=7)
+    q, k, v = args[:3]
+    out, lse = ops.flash_attn_fwd(q, k, v)
+    ref_out, ref_lse = ops.attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert_close(out, ref_out, dtype)
+    assert_close(lse, ref_lse, torch.float32)
+    got = ops.flash_attn_bwd(*args, d ** -0.5)
+    torch.cuda.synchronize()
+    for gx, rx in zip(got, ref):
+        c = pow2_scale(rx)
+        assert_close(gx.float() * c, rx * c, dtype)
+
+
+# K4 against K5 + K6 (which share no kernel code with it) at the paths'
+# shapes: UNet self- and cross-attention at batch 4, the VAE's and the DINO
+# ViT's f32 heads.
+@pytest.mark.parametrize("dtype,b,h,sq,sk,d", [
+    (torch.bfloat16, 4, 8, 4096, 4096, 40),
+    (torch.bfloat16, 4, 8, 4096, 77, 40),
+    (torch.bfloat16, 4, 8, 1024, 1024, 80),
+    (torch.bfloat16, 4, 8, 256, 256, 160),
+    (torch.bfloat16, 4, 8, 64, 64, 160),
+    (torch.float32, 4, 1, 4096, 4096, 512),
+    (torch.float32, 4, 6, 197, 197, 64),
+])
+def test_flash_attn_bwd_agrees_with_twopass_at_path_shapes(dev, dtype, b, h, sq, sk, d):
+    args, _ = bwd_case(dev, dtype, b, h, sq, sk, d, seed=9)
+    fused = ops.flash_attn_bwd(*args, d ** -0.5)
+    twopass = ops.flash_attn_bwd_twopass(*args, d ** -0.5)
+    torch.cuda.synchronize()
+    for x, y in zip(fused, twopass):
+        c = pow2_scale(y)
+        assert_close(x.float() * c, y.float() * c, dtype)
+
+
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 520), (torch.bfloat16, 192)])
 def test_flash_attn_bwd_rejects_what_it_does_not_take(dev, dtype, d):
     args, _ = bwd_case(dev, dtype, 1, 1, 16, 16, d)

@@ -162,3 +162,28 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build()
     assert _build.source_key() == _build.source_key()
     assert {p.name for p in _build.sources()} >= {"flash_attn_fwd.cu", "gn_stats.cu", "gn_apply.cu"}
+
+
+@pytest.mark.parametrize("d,dtype,want", [(36, torch.bfloat16, 40), (40, torch.bfloat16, 40),
+                                          (160, torch.bfloat16, 160), (300, torch.float32, 300),
+                                          (301, torch.float32, 304), (13, torch.float32, 16)])
+def test_kernel_head_dim_padding_keeps_attention(d, dtype, want):
+    """K1 and K4 take head dims whose rows are 16 bytes; the wrapper pads
+    with zero columns, which leave out's first d columns, lse and the
+    gradients' first d columns as they were."""
+    from sid_lsg_torch.ops.attention import _kernel_operand, kernel_head_dim
+
+    assert kernel_head_dim(d, dtype) == want
+    rng = np.random.default_rng(d)
+    q, k, v, g = (torch.from_numpy(_normal(rng, 1, 2, n, d)) for n in (5, 7, 7, 5))
+    out, lse = ops.attention_ref(q, k, v, d ** -0.5)
+    qp, kp, vp, gp = (_kernel_operand(t, want) for t in (q, k, v, g))
+    assert qp.shape[-1] == want and qp.data_ptr() % 16 == 0
+    out_p, lse_p = ops.attention_ref(qp, kp, vp, d ** -0.5)
+    torch.testing.assert_close(out_p[..., :d], out, **F32)
+    torch.testing.assert_close(out_p[..., d:], torch.zeros_like(out_p[..., d:]), atol=0, rtol=0)
+    torch.testing.assert_close(lse_p, lse, **F32)
+    grads = ops.flash_attn_bwd_ref(q, k, v, out, lse, g, d ** -0.5)
+    grads_p = ops.flash_attn_bwd_ref(qp, kp, vp, out_p, lse_p, gp, d ** -0.5)
+    for a, b in zip(grads_p, grads):
+        torch.testing.assert_close(a[..., :d], b, **F32)
