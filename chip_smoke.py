@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 ``--baseline ROOT`` names another checkout (an unpacked ``git archive`` of
 a parent commit, say): its kernels are built from ``ROOT/sid_lsg_torch/csrc``
 and its K1 and K4 are timed beside this tree's at every shape of phases 6,
-11 and 16, in the same run on the same card.
+11 and 16, in the same run on the same card; where it has the two-kernel K2
+(``sidlsg_gn_stats`` with a scratch buffer), its K2 + K3 are timed beside
+this tree's GroupNorm route at every GroupNorm key.
 
 It drives the port's three paths at full SD1.5 width on random weights from
 a seed, through the CUDA kernels built from ``sid_lsg_torch/csrc``: one-step
@@ -24,36 +26,49 @@ train step (phases 12-16).
    counters record every distinct kernel input shape of the path; x0 must be
    finite and the images of the right shape and not constant.
 3. Kernel check: each kernel against its plain PyTorch version at every
-   shape the generation launched, in that shape's dtype, TF32 off.  f32
+   shape the generation launched, in that shape's dtype, TF32 off (K8
+   against ``group_norm_ref``, K2 against ``gn_stats_ref``).  f32
    outputs within atol 1e-4 / rtol 1e-3; bf16 outputs within atol 2e-2 /
    rtol 2e-2 of the plain version computed in f32 from the same bf16 inputs,
    and every output within 1e-2 of its plain version in relative L2 norm.
    K1's v is scaled by sqrt(S_k / e) so that its outputs are of order 1 at
    every S_k: with unit-normal q, k, v a typical |out| is sqrt(e / S_k),
-   which at S_k = 4096 is about the bf16 atol itself.
+   which at S_k = 4096 is about the bf16 atol itself.  Then K1 and K4 in
+   f32 at the JAX package's parity shapes (``tests/test_pallas_parity.py``:
+   standard-normal q, k, v; K4 on the gradients of sum(sin(out))): err/tol
+   printed at its tolerances (forward atol 2e-5 / rtol 1e-4, gradients atol
+   5e-5 / rtol 1e-3), held to the f32 gate above.
 4. Small reference: the tiny preset on the card (kernels) against the same
    weights on the CPU (plain versions), f32: x0 within atol 5e-4 /
    rtol 1e-3, images within one uint8 step.
 5. Main path: the launch counters are zeroed, ``SDPipeline.generate`` runs
-   once, and every kernel must have launched; then the per-batch time over
+   once, and every kernel must have launched, with one K8 launch for each
+   GroupNorm that ``gn_plan`` sends to ``fused`` and one K2 and one K3 for
+   each of the rest; then the per-batch time over
    ten runs, and one run under torch.profiler for the device's busy time,
    idle share and time by kernel name.
 6. Timing: each kernel with CUDA events at the main path's shapes, beside its
    bound, its plain version and a library yardstick (SDPA for K1,
-   ``torch.var_mean`` for K2; F.group_norm+SiLU for K2+K3 together).  Times
+   ``F.group_norm`` (+SiLU) for K8, ``torch.var_mean`` for K2).  Times
    are summed over one main-path run: sum over shapes of launches x ms.
-   With ``--baseline``, K1 of the baseline beside K1 at each shape.
+   With ``--baseline``, K1 of the baseline beside K1 at each shape.  The
+   GroupNorm kernels (K8, K2, K3) are timed on the device alone (the calls
+   queued behind a spin kernel, so the host's launch time does not show),
+   once with inputs warm in L2 and once with L2 flushed by a 256 MB write
+   before each call; with ``--baseline``, the baseline's K2 + K3 beside
+   them.
 
 7. Train step: a ``Trainer`` built from the ``sid_train`` flags in
    ``TRAIN_ARGS`` (SD1.5, batch 4 in one microbatch, kappa 1.5, bf16,
    remat ``flash``); counters zeroed, one step (the training path's main
-   run): both losses finite, G, psi and the EMA changed, K1-K4 launched, and
+   run): both losses finite, G, psi and the EMA changed, K1, K4 and the
+   GroupNorm kernels launched as ``gn_plan`` routes the step's maps, and
    no K1 launch inside the backward sweep; then one step with remat ``full``,
    where the backward sweep launches K1 once per attention of the forwards
    that carry grad.
 8. Kernel check of the training path: K4, K5 and K6 against
    ``flash_attn_bwd_ref`` at every shape the step gave K4, and K4 against
-   K5 + K6; K1, K2 and K3 at the step's shapes phase 3 did not check.  The
+   K5 + K6; K1, K8, K2 and K3 at the step's shapes phase 3 did not check.  The
    backward's outputs are linear in dO and differ in size by orders of
    magnitude, so each is compared after scaling by the power of two that
    brings its plain version to RMS about 1 (the same as scaling dO, exactly
@@ -71,13 +86,16 @@ train step (phases 12-16).
    events, summed over one step (K4's launches x time; K5 and K6 as if they
    replaced K4), beside bound, plain version and SDPA's backward (forward +
    backward minus forward); K1 at the step's shapes, summed over one step
-   (with ``--baseline``, the baseline's K1 and K4 beside them).
+   (with ``--baseline``, the baseline's K1 and K4 beside them); the
+   GroupNorm kernels at the step's keys as phase 6 times them, summed over
+   one step.
 
 12. SiDA step: a ``Trainer`` from ``SIDA_ARGS`` (``TRAIN_ARGS`` plus the
    adversarial weights 0.1, the ``dino`` tower with a random DINO ViT-S/16,
    synthetic real latents); counters zeroed, one step (the SiDA path's main
    run): the six losses and logits finite, G, psi, the judge's heads, the
-   EMA and every spectral ``u`` changed, K1-K4 and K7 launched, K4 at the
+   EMA and every spectral ``u`` changed, K1, K4, K7 and the GroupNorm
+   kernels (as ``gn_plan`` routes the step's maps) launched, K4 at the
    VAE's f32 (mb, 1, 4096, 512) and the DINO's f32 (mb, 6, 197, 64).  Then
    (after phase 15) one step of the ``encoder`` tower: losses finite, K1-K4
    launched.
@@ -86,8 +104,8 @@ train step (phases 12-16).
    activation and in all nine with gain 1.3 and clamp 5, plus one
    (8, 512, 32, 32) bias-on-axis-1 shape in f32 and bf16 that is off the
    path; K4, K5 and K6 at the step's new f32 shapes, within the f32
-   tolerance (atol 1e-4 / rtol 1e-3 after phase 8's scaling); K1-K3 at its
-   new shapes.
+   tolerance (atol 1e-4 / rtol 1e-3 after phase 8's scaling); K1, K8, K2
+   and K3 at its new shapes.
 14. Small reference for SiDA: the tiny preset with TINY_VIT, f32, each
    tower, card against CPU from the same weights and CPU-generator draws:
    losses within rtol 1e-4, the psi-phase (psi and heads) and theta-phase
@@ -102,7 +120,8 @@ train step (phases 12-16).
    bound, plain version and SDPA's backward, with the SDPA backend named;
    K1 at the step's shapes that phases 6 and 11 did not time (the DINO
    ViT's (4, 6, 197, 64) f32); with ``--baseline``, the baseline's K1 and
-   K4 beside them.
+   K4 beside them; the GroupNorm kernels at the step's keys, summed over one
+   SiDA step.
 
 Any failure raises and exits non-zero.  The last line is the result object.
 """
@@ -111,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import shutil
@@ -136,6 +156,7 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 PEAK_BYTES = 3.35e12
 SOURCES = {
     "flash_attn_fwd": ("sid_lsg_torch/csrc/flash_attn_fwd.cu", "sid_lsg_tpu/ops/attention.py:127"),
+    "gn_fused": ("sid_lsg_torch/csrc/gn_fused.cu", "sid_lsg_tpu/ops/groupnorm.py:111"),
     "gn_stats": ("sid_lsg_torch/csrc/gn_stats.cu", "sid_lsg_tpu/ops/groupnorm.py:161"),
     "gn_apply": ("sid_lsg_torch/csrc/gn_apply.cu", "sid_lsg_tpu/ops/groupnorm.py:196"),
     "flash_attn_bwd": ("sid_lsg_torch/csrc/flash_attn_bwd.cu", "sid_lsg_tpu/ops/attention.py:234"),
@@ -145,7 +166,8 @@ SOURCES = {
                            "sid_lsg_tpu/ops/attention.py:378"),
     "bias_act": ("sid_lsg_torch/csrc/bias_act.cu", "sid_lsg_tpu/ops/bias_act.py:92"),
 }
-SERVING_KERNELS = ("flash_attn_fwd", "gn_stats", "gn_apply")
+SERVING_KERNELS = ("flash_attn_fwd", "gn_fused", "gn_stats", "gn_apply")
+GN_KERNELS = ("gn_fused", "gn_stats", "gn_apply")
 BWD_KERNELS = ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 # The training path: `python -m sid_lsg_torch.cli.sid_train` with these flags
 # (the paper's kappa = 1.5, remat `flash`); --max-ticks 1 keeps the schedule
@@ -212,6 +234,14 @@ def time_ms(fn, min_iters: int = 10, min_total_ms: float = 30.0) -> float:
 BASELINE = None
 
 
+# The argument types of the two-kernel K2's C entry (``sidlsg_gn_stats``:
+# x, part, mean, rstd, groups_total, span, splits, chunk, eps, dtype,
+# stream), which this tree's kernels no longer have.
+_PARENT_GN_STATS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_void_p]
+
+
 def load_baseline(root: str):
     """Build the kernels of the checkout at ``root`` (its
     ``sid_lsg_torch/csrc``) into this tree's build directory and load them."""
@@ -221,8 +251,127 @@ def load_baseline(root: str):
     require(csrc.is_dir(), f"--baseline {root}: no sid_lsg_torch/csrc there")
     t0 = time.perf_counter()
     lib = _build.load(_build.build(csrc), required=False)
+    if hasattr(lib, "sidlsg_gn_stats"):
+        lib.sidlsg_gn_stats.argtypes = _PARENT_GN_STATS
+        lib.sidlsg_gn_stats.restype = ctypes.c_int
     print(f"[baseline] kernels of {root} built in {time.perf_counter() - t0:.3f} s")
     return lib
+
+
+def baseline_gn_stats(lib, x, groups: int, eps: float):
+    """The two-kernel K2 of the baseline (its ``gn_partial`` into a scratch
+    buffer, then ``gn_finalize``), called as its wrapper called it."""
+    import torch
+
+    from sid_lsg_torch.ops._build import dtype_code
+
+    b = x.shape[0]
+    groups_total = b * groups
+    span = x.numel() // groups_total
+    splits = min(1024, -(-span // 8192))
+    chunk = -(-span // splits)
+    chunk = -(-chunk // 8) * 8
+    part = torch.empty(groups_total * splits * 2, dtype=torch.float32, device=x.device)
+    mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    err = lib.sidlsg_gn_stats(x.data_ptr(), part.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                              groups_total, span, splits, chunk, float(eps), dtype_code(x),
+                              torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"baseline gn_stats: CUDA error {err}")
+    return mean, rstd
+
+
+def baseline_gn_apply(lib, x, mean, rstd, gamma, beta, groups: int, silu: bool):
+    """The baseline's K3 (f32 contiguous statistics and affine)."""
+    import torch
+
+    from sid_lsg_torch.ops._build import dtype_code
+
+    b, c = x.shape[:2]
+    y = torch.empty_like(x)
+    err = lib.sidlsg_gn_apply(x.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                              gamma.data_ptr(), beta.data_ptr(), b, c, groups, x.numel() // (b * c),
+                              int(silu), dtype_code(x), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"baseline gn_apply: CUDA error {err}")
+    return y
+
+
+def baseline_group_norm(lib, x, gamma, beta, groups: int, eps: float, silu: bool):
+    """The baseline's K2 + K3, as its ``_GroupNorm.forward`` ran them."""
+    return baseline_gn_apply(lib, x, *baseline_gn_stats(lib, x, groups, eps), gamma, beta, groups,
+                             silu)
+
+
+_FLUSH = None  # 256 MB written before each call of a cold timing, five times the L2
+
+
+def device_ms(fn, cold: bool = False, iters: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms, host launch time excluded:
+    the calls are queued behind a spin kernel of about 10 ms, so the device
+    runs them back to back.  Warm: CUDA events around ``iters`` calls, over
+    ``iters``.  Cold: before each call a 256 MB write evicts the inputs from
+    the 50 MB L2, and CUDA events around each call give the median."""
+    import torch
+
+    global _FLUSH
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters if cold else 1)]
+    if cold and _FLUSH is None:
+        _FLUSH = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    torch.cuda._sleep(20_000_000)
+    if cold:
+        for a, b in events:
+            _FLUSH.zero_()
+            a.record()
+            fn()
+            b.record()
+    else:
+        events[0][0].record()
+        for _ in range(iters):
+            fn()
+        events[0][1].record()
+    torch.cuda.synchronize()
+    if cold:
+        return statistics.median(a.elapsed_time(b) for a, b in events)
+    return events[0][0].elapsed_time(events[0][1]) / iters
+
+
+class GNCalls:
+    """Counts the GroupNorms a run makes, by the route ``gn_plan`` gives
+    them, by wrapping ``ops.group_norm`` (which every GroupNorm module looks
+    up at each call) while active."""
+
+    def __enter__(self):
+        from sid_lsg_torch import ops
+
+        self._ops, self._fn = ops, ops.group_norm
+        self.routes = {"fused": 0, "tiled": 0}
+
+        def group_norm(x, gamma, beta, num_groups=32, eps=1e-5, silu=False):
+            self.routes[ops.gn_plan(x.shape, x.dtype, num_groups)[0]] += 1
+            return self._fn(x, gamma, beta, num_groups, eps, silu)
+
+        ops.group_norm = group_norm
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.group_norm = self._fn
+
+
+def require_gn_routes(label: str, launches: dict, calls: GNCalls) -> None:
+    """One K8 launch per GroupNorm routed ``fused``, one K2 and one K3 per
+    GroupNorm routed ``tiled``, and at least one GroupNorm."""
+    r = calls.routes
+    print(f"[{label}] GroupNorms: {r['fused']} fused (K8), {r['tiled']} tiled (K2 + K3); "
+          f"GroupNorm kernel launches {sum(launches[k] for k in GN_KERNELS)} "
+          f"(gn_fused {launches['gn_fused']}, gn_stats {launches['gn_stats']}, gn_apply "
+          f"{launches['gn_apply']})")
+    require(r["fused"] + r["tiled"] > 0, f"{label}: no GroupNorm ran")
+    require(launches["gn_fused"] == r["fused"] and launches["gn_stats"] == r["tiled"]
+            and launches["gn_apply"] == r["tiled"],
+            f"{label}: GroupNorm launches {launches} do not follow gn_plan's routes {r}")
 
 
 @contextlib.contextmanager
@@ -354,26 +503,142 @@ def kernel_cases(name, key, gen):
                 lambda: ops.attention_ref(q.float(), k.float(), v.float()),
                 lambda: F.scaled_dot_product_attention(q, k, v),
                 TOL_BF16 if dtype == torch.bfloat16 else TOL_F32, work)
+    c = gn_cases(name, key, gen)
+    return c["kern"], c["plain"], c["library"], c["tol"], c["work"]
+
+
+def gn_cases(name, key, gen) -> dict:
+    """For one recorded launch key of K8, K2 or K3, on fresh inputs of that
+    shape (x = 2 * normal + 0.5 in the key's dtype): the kernel, its plain
+    version, the library yardstick (None for K3), the baseline's kernels
+    (K2 + K3 for K8, K2 for K2, K3 for K3; None without ``--baseline``), the
+    tolerance and (bytes, operations, type)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sid_lsg_torch import ops
+
+    dev = torch.device("cuda")
     shape, dt, groups = key[:3]
     dtype = getattr(torch, dt.split(".")[1])
     x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
     n, c = shape[:2]
-    numel = x.numel()
+    numel, es = x.numel(), x.element_size()
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    lib = BASELINE if BASELINE is not None and hasattr(BASELINE, "sidlsg_gn_stats") else None
     if name == "gn_stats":
-        work = (numel * x.element_size() + 8 * n * groups, 3 * numel, "torch.float32")
-        return (lambda: ops.gn_stats(x, groups, 1e-5),
-                lambda: ops.gn_stats_ref(x.float(), groups, 1e-5),
-                lambda: torch.var_mean(x.view(n, groups, -1), dim=-1, correction=0),
-                TOL_F32, work)
+        return {"kern": lambda: ops.gn_stats(x, groups, 1e-5),
+                "plain": lambda: ops.gn_stats_ref(x.float(), groups, 1e-5),
+                "library": lambda: torch.var_mean(x.view(n, groups, -1), dim=-1, correction=0),
+                "baseline": lib and (lambda: baseline_gn_stats(lib, x, groups, 1e-5)),
+                "tol": TOL_F32, "work": (numel * es + 8 * n * groups, 3 * numel, "torch.float32")}
     silu = key[3]
     gamma = torch.randn(c, generator=gen, device=dev) + 1
     beta = torch.randn(c, generator=gen, device=dev)
+    if name == "gn_fused":
+        g16, b16 = gamma.to(dtype), beta.to(dtype)
+        act = F.silu if silu else (lambda y: y)
+        return {"kern": lambda: ops.gn_fused(x, gamma, beta, groups, 1e-5, silu),
+                "plain": lambda: ops.group_norm_ref(x.float(), gamma, beta, groups, 1e-5, silu),
+                "library": lambda: act(F.group_norm(x, groups, g16, b16, 1e-5)),
+                "baseline": lib and (lambda: baseline_group_norm(lib, x, gamma, beta, groups, 1e-5,
+                                                                 silu)),
+                "tol": tol, "work": (2 * numel * es + 8 * c, (9 if silu else 5) * numel,
+                                     "torch.float32")}
     mean, rstd = ops.gn_stats_ref(x.float(), groups, 1e-5)
-    work = (2 * numel * x.element_size() + 8 * c + 8 * n * groups, (6 if silu else 2) * numel,
-            "torch.float32")
-    return (lambda: ops.gn_apply(x, mean, rstd, gamma, beta, silu),
-            lambda: ops.gn_apply_ref(x.float(), mean, rstd, gamma, beta, silu),
-            None, TOL_BF16 if dtype == torch.bfloat16 else TOL_F32, work)
+    return {"kern": lambda: ops.gn_apply(x, mean, rstd, gamma, beta, silu),
+            "plain": lambda: ops.gn_apply_ref(x.float(), mean, rstd, gamma, beta, silu),
+            "library": None,
+            "baseline": lib and (lambda: baseline_gn_apply(lib, x, mean, rstd, gamma, beta, groups,
+                                                           silu)),
+            "tol": tol, "work": (2 * numel * es + 8 * c + 8 * n * groups, (6 if silu else 2) * numel,
+                                 "torch.float32")}
+
+
+# Per (kernel, key): the GroupNorm timings of ``time_gn_key``, so that the
+# train and SiDA steps reuse the serving batch's.
+_GN_TIMES: dict = {}
+
+
+def time_gn_key(name, key, gen) -> dict:
+    """One GroupNorm kernel at one launch key: its device time warm and
+    cold, bound, plain version, library yardstick (warm and cold; for K3
+    keys ``F.group_norm`` (+SiLU), the library call of the whole K2 + K3
+    pair) and the baseline's (warm and cold), in ms a launch."""
+    import torch
+    import torch.nn.functional as F
+
+    if (name, key) in _GN_TIMES:
+        return _GN_TIMES[(name, key)]
+    c = gn_cases(name, key, gen)
+    nbytes, flops, op_type = c["work"]
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[op_type] * 1e3, nbytes / PEAK_BYTES * 1e3
+    lib = c["library"]
+    if name == "gn_apply":  # the pair's library call: F.group_norm (+SiLU) on the same shape
+        shape, dt, groups, silu = key
+        dtype = getattr(torch, dt.split(".")[1])
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w, b = torch.ones(shape[1], device="cuda", dtype=dtype), torch.zeros(shape[1], device="cuda",
+                                                                              dtype=dtype)
+        act = F.silu if silu else (lambda y: y)
+        lib = lambda: act(F.group_norm(x, groups, w, b, 1e-5))
+    row = {"ms": device_ms(c["kern"]), "cold_ms": device_ms(c["kern"], cold=True),
+           "plain_ms": device_ms(c["plain"], iters=5), "bound_ms": max(ops_ms, bytes_ms),
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+           "library_ms": device_ms(lib), "library_cold_ms": device_ms(lib, cold=True),
+           "base_ms": device_ms(c["baseline"]) if c["baseline"] else 0.0,
+           "base_cold_ms": device_ms(c["baseline"], cold=True) if c["baseline"] else 0.0}
+    _GN_TIMES[(name, key)] = row
+    return row
+
+
+GN_FIELDS = ("ms", "cold_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms", "library_ms",
+             "library_cold_ms", "base_ms", "base_cold_ms")
+GN_YARDSTICK = {"gn_fused": "F.group_norm(+SiLU)", "gn_stats": "torch.var_mean",
+                "gn_apply": "F.group_norm(+SiLU) of the K2 + K3 pair"}
+GN_BASELINE = {"gn_fused": "baseline K2 + K3", "gn_stats": "baseline K2", "gn_apply": "baseline K3"}
+
+
+def time_gn_keys(keys: dict, gen, label: str) -> dict:
+    """K8, K2 and K3 at each launch key of one path run (``keys``: name ->
+    Counter of keys), summed over the launches: {name: totals}.  Prints a
+    line per key and the sums, and the whole GroupNorm forward of the run
+    against ``F.group_norm`` (+SiLU) and the baseline's K2 + K3."""
+    tot = {name: dict.fromkeys(GN_FIELDS, 0.0) for name in GN_KERNELS}
+    for name in GN_KERNELS:
+        for key, n in sorted(keys[name].items(), key=lambda kv: str(kv[0])):
+            row = time_gn_key(name, key, gen)
+            for f in GN_FIELDS:
+                tot[name][f] += n * row[f]
+            print(f"[gn-time] {name} {key} x{n}: warm {row['ms']:.5f} ms, cold {row['cold_ms']:.5f}, "
+                  f"bound {row['bound_ms']:.5f}, {GN_YARDSTICK[name]} warm {row['library_ms']:.5f} "
+                  f"cold {row['library_cold_ms']:.5f}, {GN_BASELINE[name]} warm {row['base_ms']:.5f} "
+                  f"cold {row['base_cold_ms']:.5f}, plain {row['plain_ms']:.5f}")
+    for name in GN_KERNELS:
+        t = tot[name]
+        print(f"[gn-time] {name} per {label}: {sum(keys[name].values())} launches, warm "
+              f"{t['ms']:.4f} ms, cold {t['cold_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, "
+              f"{GN_YARDSTICK[name]} warm {t['library_ms']:.4f} cold {t['library_cold_ms']:.4f} ms, "
+              f"{GN_BASELINE[name]} warm {t['base_ms']:.4f} cold {t['base_cold_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms")
+    f, s2, a = tot["gn_fused"], tot["gn_stats"], tot["gn_apply"]
+    print(f"[gn-time] GroupNorm forward per {label}: {sum(sum(keys[k].values()) for k in GN_KERNELS)} "
+          f"launches; this tree warm {f['ms'] + s2['ms'] + a['ms']:.4f} ms, cold "
+          f"{f['cold_ms'] + s2['cold_ms'] + a['cold_ms']:.4f} ms; F.group_norm(+SiLU) warm "
+          f"{f['library_ms'] + a['library_ms']:.4f} cold {f['library_cold_ms'] + a['library_cold_ms']:.4f} "
+          f"ms; baseline K2 + K3 warm {f['base_ms'] + s2['base_ms'] + a['base_ms']:.4f} cold "
+          f"{f['base_cold_ms'] + s2['base_cold_ms'] + a['base_cold_ms']:.4f} ms")
+    return tot
+
+
+def gn_entry(name, launches, max_abs, tot) -> dict:
+    """The kernels-line entry of K8, K2 or K3 from ``time_gn_keys``'s totals
+    (warm times)."""
+    return {"name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": launches, "max_abs_err": max_abs,
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
+            "library_ms": tot["library_ms"] if name != "gn_apply" else None}
 
 
 def check_outputs(label, got, ref, tol, scale_each: bool = False) -> float:
@@ -408,6 +673,39 @@ def check_forward_kernel(name, key, gen) -> float:
     if not isinstance(got, tuple):
         got, ref = (got,), (ref,)
     return check_outputs(f"{name} {key}", got, ref, tol)
+
+
+def check_parity_f32(gen) -> None:
+    """K1 and K4 in f32 at the JAX package's parity shapes and inputs
+    (``tests/test_pallas_parity.py:22-50``: standard-normal q, k, v; K4 on
+    the gradients of sum(sin(out)), so dO = cos(out)): err/tol printed at
+    its tolerances, each output held to the f32 gate."""
+    import torch
+
+    from sid_lsg_torch import ops
+
+    dev = torch.device("cuda")
+    for sq, sk, d in ((128, 128, 64), (200, 77, 40), (64, 256, 32)):
+        q, k, v = (torch.randn(2, 3, s_, d, generator=gen, device=dev) for s_ in (sq, sk, sk))
+        out, _ = ops.flash_attn_fwd(q, k, v)
+        ref, _ = ops.attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        ratio = close_errors(out, ref, atol=2e-5, rtol=1e-4)[2]
+        print(f"[parity] K1 f32 (2, 3, {sq}, {sk}, {d}): err/tol {ratio:.3f} at the JAX parity "
+              f"tolerance (atol 2e-5, rtol 1e-4)")
+        check_outputs(f"flash_attn_fwd f32 parity shape (2, 3, {sq}, {sk}, {d})", (out,), (ref,),
+                      TOL_F32)
+    q = torch.randn(1, 2, 160, 32, generator=gen, device=dev)
+    k, v = (torch.randn(1, 2, 96, 32, generator=gen, device=dev) for _ in range(2))
+    out, lse = ops.attention_ref(q, k, v)
+    args = (q, k, v, out, lse, torch.cos(out), 32 ** -0.5)
+    got, ref = ops.flash_attn_bwd(*args), ops.flash_attn_bwd_ref(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, ref):
+        ratio = close_errors(a, b, atol=5e-5, rtol=1e-3)[2]
+        print(f"[parity] K4 f32 d{name} at q (1, 2, 160, 32), k/v (1, 2, 96, 32): err/tol "
+              f"{ratio:.3f} at the JAX parity tolerance (atol 5e-5, rtol 1e-3)")
+    check_outputs("flash_attn_bwd f32 parity shape", got, ref, TOL_F32)
 
 
 def attention_flops(keys, per_element: int) -> float:
@@ -634,7 +932,7 @@ def train_phases(card: str, gen, serving_keys):
               for part in ("params_G", "params_fake", "ema")}
     registry.reset()
     t0 = time.perf_counter()
-    with K1Sweep() as sweep:
+    with K1Sweep() as sweep, GNCalls() as gn_calls:
         metrics = trainer.step()
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -645,8 +943,9 @@ def train_phases(card: str, gen, serving_keys):
           f"K1 in forwards with grad {sweep.forward_grad}, K1 in the backward sweep "
           f"{sweep.backward}")
     require(all(math.isfinite(x) for x in losses.values()), f"losses not finite: {losses}")
-    for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_stats", "gn_apply"):
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
         require(train_launches[name] > 0, f"{name} was not launched by the train step")
+    require_gn_routes("train", train_launches, gn_calls)
     require(sweep.forward_grad > 0 and sweep.backward == 0,
             "remat flash: the backward sweep launched the forward attention kernel")
     for part, old in before.items():
@@ -690,7 +989,7 @@ def train_phases(card: str, gen, serving_keys):
     tiny_cpu = tiny_train_grads("cpu")
     print(f"[tiny-train] losses card {tiny_card[0]}, CPU {tiny_cpu[0]}; card launches "
           f"{tiny_launches}")
-    for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_stats", "gn_apply"):
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_fused"):
         require(tiny_launches[name] > 0, f"tiny train: {name} not launched on the card")
     compare_tiny("tiny-train", tiny_card, tiny_cpu)
 
@@ -759,6 +1058,7 @@ def train_phases(card: str, gen, serving_keys):
           f"{rows['flash_attn_bwd_dq']['ms'] + rows['flash_attn_bwd_dkv']['ms']:.4f} ms, SDPA "
           f"backward {rows['flash_attn_bwd']['library_ms']:.4f} ms")
     time_fwd_keys(train_keys["flash_attn_fwd"], gen, "train step")
+    time_gn_keys(train_keys, gen, "train step")
     return entries, train_keys, phase10
 
 def fingerprints(tree) -> "torch.Tensor":
@@ -830,8 +1130,9 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
     u_before = {k: v.clone() for k, v in spectral_buffers(trainer.disc).items()}
     registry.reset()
     t0 = time.perf_counter()
-    metrics = trainer.step()
-    torch.cuda.synchronize()
+    with GNCalls() as gn_calls:
+        metrics = trainer.step()
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = registry.counts()
     sida_keys = {name: registry.launches_by_key(name) for name in registry.KERNELS}
@@ -839,8 +1140,9 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
     vals = {k: float(metrics[k]) for k in names}
     print(f"[sida] main step in {first_s:.3f} s: {vals}, launches {launches}")
     require(all(math.isfinite(x) for x in vals.values()), f"SiDA losses not finite: {vals}")
-    for name in ("flash_attn_fwd", "gn_stats", "gn_apply", "flash_attn_bwd", "bias_act"):
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "bias_act"):
         require(launches[name] > 0, f"{name} was not launched by the SiDA step")
+    require_gn_routes("sida", launches, gn_calls)
     for want in (((SIDA_BATCH, 1, 4096, 512),) * 2 + ("torch.float32",),
                  ((SIDA_BATCH, 6, 197, 64),) * 2 + ("torch.float32",)):
         require(sida_keys["flash_attn_bwd"][want] > 0, f"K4 was not launched at {want}")
@@ -880,15 +1182,17 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
     trainer = Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(enc_args)))
     registry.reset()
     t0 = time.perf_counter()
-    metrics = trainer.step()
-    torch.cuda.synchronize()
+    with GNCalls() as gn_calls:
+        metrics = trainer.step()
+        torch.cuda.synchronize()
     enc_launches = registry.counts()
     vals = {k: float(metrics[k]) for k in names}
     print(f"[sida] encoder tower step in {time.perf_counter() - t0:.3f} s: {vals}, launches "
           f"{enc_launches}")
     require(all(math.isfinite(x) for x in vals.values()), f"encoder-tower losses not finite: {vals}")
-    for name in ("flash_attn_fwd", "gn_stats", "gn_apply", "flash_attn_bwd"):
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
         require(enc_launches[name] > 0, f"{name} was not launched by the encoder-tower step")
+    require_gn_routes("sida encoder", enc_launches, gn_calls)
     del trainer
     torch.cuda.empty_cache()
 
@@ -961,6 +1265,7 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
     new_fwd = {key: n for key, n in sida_keys["flash_attn_fwd"].items()
                if key not in checked["flash_attn_fwd"]}
     time_fwd_keys(new_fwd, gen, "SiDA step at the shapes the train step lacks")
+    time_gn_keys(sida_keys, gen, "SiDA step")
     return {"name": "bias_act", "route": "cuda", "source": SOURCES["bias_act"][0],
             "replaces": SOURCES["bias_act"][1], "launches": launches["bias_act"],
             "max_abs_err": max_abs, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -972,17 +1277,14 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", default=None,
-                        help="root of another checkout whose K1 and K4 are timed beside this "
-                             "one's (built from its sid_lsg_torch/csrc)")
+                        help="root of another checkout whose K1, K4 and GroupNorm kernels are "
+                             "timed beside this one's (built from its sid_lsg_torch/csrc)")
     baseline = parser.parse_args(argv).baseline
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
-    import torch.nn.functional as F
-
-    from sid_lsg_torch import ops
     from sid_lsg_torch.diffusion.rng import StackedRandomGenerator
     from sid_lsg_torch.models import TINY
     from sid_lsg_torch.ops import _build, registry
@@ -1030,6 +1332,7 @@ def main(argv=None) -> int:
     for name in SERVING_KERNELS:
         require(keys[name], f"{name}: the warm-up generation never launched it")
         max_abs[name] = max(check_forward_kernel(name, key, gen) for key in sorted(keys[name], key=str))
+    check_parity_f32(gen)
 
     # 4. Small reference: tiny preset, card (kernels) vs CPU (plain versions), f32.
     cpu = SDPipeline.random_init("tiny", dtype=torch.float32, device="cpu", seed=0)
@@ -1050,14 +1353,16 @@ def main(argv=None) -> int:
     # 5. Main path: counters zeroed, one generate, every kernel launched.
     registry.reset()
     t0 = time.perf_counter()
-    images = pipe.generate(PROMPTS, latents, init_timestep=INIT_TIMESTEP)
-    torch.cuda.synchronize()
+    with GNCalls() as gn_calls:
+        images = pipe.generate(PROMPTS, latents, init_timestep=INIT_TIMESTEP)
+        torch.cuda.synchronize()
     batch_s = [time.perf_counter() - t0]
     launches = registry.counts()
     main_keys = {name: registry.launches_by_key(name) for name in SERVING_KERNELS}
     print(f"[main] launches {launches}")
     for name in SERVING_KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")
+    require_gn_routes("main", launches, gn_calls)
     require(images.shape == (BATCH, 512, 512, 3), f"images {tuple(images.shape)}")
     for _ in range(9):
         t0 = time.perf_counter()
@@ -1069,61 +1374,17 @@ def main(argv=None) -> int:
     trace("one generate", lambda: pipe.generate(PROMPTS, latents, init_timestep=INIT_TIMESTEP))
 
     # 6. Timing at the main path's shapes, summed over one main-path run.
-    kernels = []
-    pair = {"kernels_ms": 0.0, "library_ms": 0.0}
-    single = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    for name in SERVING_KERNELS:
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-               "library_ms": 0.0}
-        if name == "flash_attn_fwd":
-            tot = time_fwd_keys(main_keys[name], gen, "batch")
-        for key, n in sorted(main_keys[name].items(), key=lambda kv: str(kv[0])):
-            if name == "flash_attn_fwd":
-                continue
-            kern, plain, lib, _, (nbytes, flops, op_type) = kernel_cases(name, key, gen)
-            ops_ms = flops / PEAK_FLOPS[op_type] * 1e3
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            row = {"kernel": name, "key": str(key), "launches": n, "ms": time_ms(kern),
-                   "plain_ms": time_ms(plain), "library_ms": time_ms(lib) if lib else None,
-                   "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms}
-            for f in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
-                tot[f] += n * row[f]
-            tot["library_ms"] += n * (row["library_ms"] or 0.0)
-            if name != "flash_attn_fwd" and math.prod(key[0][1:]) * 4 <= 6 * 2**20:
-                # The maps the JAX single-block kernel takes (HW * C * 4 <= 6 MiB).
-                single["launches"] += n if name == "gn_stats" else 0
-                for f in ("ms", "plain_ms", "bound_ms"):
-                    single[f] += n * row[f]
-            print(f"[time] {name} {key} x{n}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
-                  f"bound {row['bound_ms']:.4f}, library {row['library_ms']}")
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
-            "max_abs_err": max_abs[name], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"],
-            "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
-            "library_ms": tot["library_ms"] if name != "gn_apply" else None,
-        })
-    # K2 + K3 together against one F.group_norm (+ SiLU) per GroupNorm of the path.
-    for key, n in main_keys["gn_apply"].items():
-        shape, dt, groups, silu = key
-        x = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt.split(".")[1]))
-        gamma = torch.ones(shape[1], device="cuda")
-        beta = torch.zeros(shape[1], device="cuda")
-        ours = lambda: ops.group_norm(x, gamma, beta, groups, 1e-5, silu)
-        ref = lambda: (F.silu if silu else (lambda y: y))(
-            F.group_norm(x, groups, gamma.to(x.dtype), beta.to(x.dtype), 1e-5))
-        pair["kernels_ms"] += n * time_ms(ours)
-        lib_ms = time_ms(ref)
-        pair["library_ms"] += n * lib_ms
-        if math.prod(shape[1:]) * 4 <= 6 * 2**20:
-            single["library_ms"] += n * lib_ms
-    print(f"[time] GroupNorm(+SiLU) per main-path run: K2+K3 {pair['kernels_ms']:.4f} ms, "
-          f"F.group_norm(+silu) {pair['library_ms']:.4f} ms")
-    print(f"[time] GroupNorm on single-block maps (HW*C*4 <= 6 MiB, the JAX "
-          f"_gn_silu_pallas_fwd's) per main-path run: {single['launches']} calls, K2+K3 "
-          f"{single['ms']:.4f} ms, bound {single['bound_ms']:.4f} ms, plain "
-          f"{single['plain_ms']:.4f} ms, F.group_norm(+silu) {single['library_ms']:.4f} ms")
+    tot = time_fwd_keys(main_keys["flash_attn_fwd"], gen, "batch")
+    kernels = [{
+        "name": "flash_attn_fwd", "route": "cuda", "source": SOURCES["flash_attn_fwd"][0],
+        "replaces": SOURCES["flash_attn_fwd"][1], "launches": launches["flash_attn_fwd"],
+        "max_abs_err": max_abs["flash_attn_fwd"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
+        "library_ms": tot["library_ms"],
+    }]
+    gn_tot = time_gn_keys(main_keys, gen, "serving batch")
+    kernels += [gn_entry(name, launches[name], max_abs[name], gn_tot[name]) for name in GN_KERNELS]
 
     del pipe, card_tiny, cpu
     train_entries, train_keys, phase10 = train_phases(card, gen, keys)

@@ -22,13 +22,14 @@
 // - bf16 (D <= 160, d % 8 == 0): one block of three warpgroups per (bh,
 //   128 keys), K and V resident in shared memory.  Warpgroup 0 is the
 //   producer (setmaxnreg 24): one thread TMA-loads K and V once, then Q and
-//   dO tiles of 64 queries into a two-stage ring, while the warpgroup's 128
-//   threads copy the tile's lse and delta beside them; each stage has a
-//   "full" mbarrier (128 arrivals plus the TMA bytes) and an "empty" one
-//   (the eight consumer warps).  Warpgroups 1 and 2 (setmaxnreg 240) each
-//   own 64 keys: S^T = K Q^T and dP^T = V dO^T are wgmma chains (m64n64k16)
-//   from shared memory; P^T and dS^T are formed in registers and, packed to
-//   bf16, are the register A operands of dV += P^T dO and dK += dS^T Q
+//   dO tiles of 64 queries into a two-stage ring (one stage at D = 160),
+//   while the warpgroup's 128 threads copy the tile's lse and delta beside
+//   them; each stage has a "full" mbarrier (128 arrivals plus the TMA
+//   bytes) and an "empty" one (the eight consumer warps).  Warpgroups 1
+//   and 2 (setmaxnreg 240) each own 64 keys: S^T = K Q^T and dP^T = V dO^T
+//   are wgmma chains (m64n64k16) from shared memory; P^T and dS^T are
+//   formed in registers and, packed to bf16, are the register A operands
+//   of dV += P^T dO and dK += dS^T Q
 //   (m64nDk16, dO and Q read through the transpose bit), so dK and dV stay
 //   in registers for the whole sweep.  dS^T also goes to shared memory
 //   (32-byte swizzle, two 16 KB buffers), from which dQ_tile = dS K over the
@@ -39,12 +40,19 @@
 //   an f32 staging chunk and one TMA bulk reduce-add
 //   (cp.reduce.async.bulk.tensor .add) per (key tile, query tile) and
 //   column chunk into the f32 dQ buffer: no per-element atomics.
+//   dQ sums only 128 keys a block (77 in all at cross-attention), so a
+//   large dS element rounded to bf16 shows in it.  dS^T is therefore
+//   stored as a bf16 high part and a bf16 remainder (dS - high), two more
+//   16 KB buffers, and dQ_tile takes both products, as if dS had 16 bits
+//   of mantissa.  (The TPU kernel rounds ds to the input dtype before its
+//   dQ dot; K5 does the same split as here, in registers.)
 //   Why these tiles: 64 queries a stage keep S^T and dP^T at 32 registers
 //   each, beside dK and dV (80 + 80 at D = 160, where dQ then runs in five
 //   chunks of 32 columns so that it fits too); 128 keys a block halve the
 //   passes over Q and dO, and the dQ reduce-adds, against 64; at D = 160 K,
-//   V, two stages of Q and dO, two dS^T buffers and two staging chunks take
-//   211 KB of the 227 KB.  ptxas allots 168 registers a thread at 384
+//   V, the Q and dO tiles, four dS^T buffers and two staging chunks take
+//   202 KB of the 227 KB, with one stage of Q and dO where smaller head
+//   dims have two.  ptxas allots 168 registers a thread at 384
 //   threads whatever setmaxnreg asks, so at D = 64 and 160 the consumers
 //   spill a few hundred bytes.  The tiles use the column-block layout of
 //   hopper.cuh; TMA zero-fills rows past S and columns past D, so rows past
@@ -81,6 +89,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (lo, hi) less their bf16 pair `packed`, packed to bf16: what rounding left.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi, uint32_t packed) {
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
+  return pack_bf16(lo - h.x, hi - h.y);
+}
+
 __global__ void cast_f32_bf16(const float* __restrict__ src, bf16* __restrict__ dst, long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
@@ -91,7 +105,6 @@ __global__ void cast_f32_bf16(const float* __restrict__ src, bf16* __restrict__ 
 
 constexpr int BB_KV = 128;  // keys a block: two consumer warpgroups of 64
 constexpr int BB_Q = 64;    // queries a stage
-constexpr int BB_STAGES = 2;
 
 template <int DP>
 struct BwdBf16 {
@@ -108,10 +121,11 @@ struct BwdBf16 {
   static constexpr int OFF_V = KV_BYTES;
   static constexpr int OFF_RING = 2 * KV_BYTES;  // stage s: Q, dO, lse (64 f32), delta (64 f32)
   static constexpr int STAGE = 2 * Q_BYTES + 1024;
-  static constexpr int OFF_DS = OFF_RING + BB_STAGES * STAGE;  // two dS^T buffers
-  static constexpr int OFF_STG = OFF_DS + 2 * DS_BYTES;        // two staging chunks
+  static constexpr int STAGES = DP > 80 ? 1 : 2;  // at D = 160 the dS^T remainders take the second
+  static constexpr int OFF_DS = OFF_RING + STAGES * STAGE;  // two dS^T buffers, then two remainders
+  static constexpr int OFF_STG = OFF_DS + 4 * DS_BYTES;      // two staging chunks
   static constexpr int OFF_BAR = OFF_STG + 2 * STG_BYTES;
-  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * BB_STAGES);
+  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
   static_assert(DQ_N % 16 == 0, "dQ chunks start at a column block");
 };
 
@@ -133,14 +147,14 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const uint32_t bars = s0 + C::OFF_BAR;
   const uint32_t kv_full = bars;
   auto full = [&](int s) { return bars + 8 * (1 + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + BB_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + C::STAGES + s); };
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BB_KV;
   const int nq = (sq + BB_Q - 1) / BB_Q;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < BB_STAGES; ++s) {
+    for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(full(s), 128);
       mbar_init(empty(s), 8);
     }
@@ -162,8 +176,8 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const float* lb = lse + size_t(bh) * sq;
     const float* eb = delta + size_t(bh) * sq;
     for (int it = 0; it < nq; ++it) {
-      const int s = it % BB_STAGES;
-      if (it >= BB_STAGES) mbar_wait(empty(s), ((it / BB_STAGES) - 1) & 1);
+      const int s = it % C::STAGES;
+      if (it >= C::STAGES) mbar_wait(empty(s), ((it / C::STAGES) - 1) & 1);
       const int row = it * BB_Q + (tid % BB_Q);
       float* L = Ls(s);
       if (tid < BB_Q)
@@ -195,9 +209,9 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
   mbar_wait(kv_full, 0);
   for (int it = 0; it < nq; ++it) {
-    const int s = it % BB_STAGES;
+    const int s = it % C::STAGES;
     const int q0 = it * BB_Q;
-    mbar_wait(full(s), (it / BB_STAGES) & 1);
+    mbar_wait(full(s), (it / C::STAGES) & 1);
     float st[BB_Q / 2], dpt[BB_Q / 2];
 #pragma unroll
     for (int i = 0; i < BB_Q / 2; ++i) st[i] = dpt[i] = 0.f;
@@ -242,6 +256,9 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       // dS^T (keys x queries) into its column-block tile of 128 rows
       *reinterpret_cast<uint32_t*>(ds_tile + cb_offset(kr, col, BB_KV)) = s01;
       *reinterpret_cast<uint32_t*>(ds_tile + cb_offset(kr + 8, col, BB_KV)) = s23;
+      unsigned char* rest = ds_tile + 2 * C::DS_BYTES;  // what the bf16 rounding left
+      *reinterpret_cast<uint32_t*>(rest + cb_offset(kr, col, BB_KV)) = pack_bf16_rest(d0, d1, s01);
+      *reinterpret_cast<uint32_t*>(rest + cb_offset(kr + 8, col, BB_KV)) = pack_bf16_rest(d2, d3, s23);
     }
     wgmma_fence();
 #pragma unroll
@@ -269,10 +286,13 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         for (int i = 0; i < C::DQ_N / 2; ++i) dqa[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BB_KV / 16; ++kk)
+        for (int kk = 0; kk < BB_KV / 16; ++kk) {
+          const uint64_t kd =
+              desc_mnmajor(sK + (ch * C::DQ_N / 16) * BB_KV * 32 + kk * 16 * 32, BB_KV);
+          WgmmaSS<C::DQ_N, 1, 1>::run(dqa, desc_mnmajor(sDS + kk * 16 * 32, BB_KV), kd, 1);
           WgmmaSS<C::DQ_N, 1, 1>::run(
-              dqa, desc_mnmajor(sDS + kk * 16 * 32, BB_KV),
-              desc_mnmajor(sK + (ch * C::DQ_N / 16) * BB_KV * 32 + kk * 16 * 32, BB_KV), 1);
+              dqa, desc_mnmajor(sDS + 2 * C::DS_BYTES + kk * 16 * 32, BB_KV), kd, 1);
+        }
         wgmma_commit();
         wgmma_wait<0>();  // also completes dV and dK of this tile
         fence_regs(dqa);

@@ -27,7 +27,10 @@
 //   accumulate in registers for the whole sweep.
 // - dq kernel (K5): one block of 4 warps per (bh, 64-query tile), looping
 //   over the k-tiles; dQ stays in registers, written once, no atomics, so
-//   K5 + K6 are deterministic.
+//   K5 + K6 are deterministic.  dS enters dQ += dS K as its bf16 high part
+//   and the bf16 remainder (two products, 8 S_q S_k D operations in all),
+//   since a row of few keys (77 at cross-attention) carries the rounding
+//   of its largest dS elements into dQ.
 // f32 (the VAE's and the DINO ViT's attention, the tiny check and --bf16 0;
 // D <= 512): CUDA cores, 32-key x 32-query tiles and 128 threads per block
 // up to D = 160, 16 x 16 tiles and 256 threads above, so that the four
@@ -180,6 +183,17 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4], c
   a[1] = pack_f(c0[2], c0[3]);
   a[2] = pack_f(c1[0], c1[1]);
   a[3] = pack_f(c1[2], c1[3]);
+}
+
+// What the bf16 rounding of c_to_a left: the A fragment of (c0, c1) less a.
+__device__ __forceinline__ void c_to_a_rest(uint32_t (&r)[4], const uint32_t (&a)[4],
+                                            const float (&c0)[4], const float (&c1)[4]) {
+  const float c[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[i]));
+    r[i] = pack_f(c[2 * i] - h.x, c[2 * i + 1] - h.y);
+  }
 }
 
 // K6.
@@ -428,15 +442,21 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
         dp[j][2 + e] = pb_ * (dp[j][2 + e] - eb) * scale;
       }
     }
-    // dQ += dS K: k16 steps over the k-tile; K rows are the k index.
+    // dQ += dS K: k16 steps over the k-tile; K rows are the k index.  dS
+    // enters as its bf16 high part and the bf16 remainder, two products, so
+    // that the few keys of a cross-attention row do not carry dS's bf16
+    // rounding into dQ.
 #pragma unroll
     for (int kk = 0; kk < KT / 2; ++kk) {
-      uint32_t a[4];
+      uint32_t a[4], ar[4];
       c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+      c_to_a_rest(ar, a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const bf16* kr = Kt + (kk * 16 + 2 * t) * LD + n * 8 + g;
-        mma16816(dqa[n], a, pack_h(kr[0], kr[LD]), pack_h(kr[8 * LD], kr[9 * LD]));
+        const uint32_t b0 = pack_h(kr[0], kr[LD]), b1 = pack_h(kr[8 * LD], kr[9 * LD]);
+        mma16816(dqa[n], a, b0, b1);
+        mma16816(dqa[n], ar, b0, b1);
       }
     }
     __syncthreads();  // this buffer is refilled at it + 2

@@ -15,45 +15,15 @@
 // the per-channel scale and bias are computed once per block and the loop is
 // a plain 16-bytes-per-thread stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "gn_common.cuh"
+
 namespace {
 
 constexpr int GA_THREADS = 256;
-
-__device__ __forceinline__ float act(float y, int silu) { return silu ? y / (1.f + expf(-y)) : y; }
-
-__device__ __forceinline__ void apply_vec(const float* xp, float* yp, float sc, float bi, int silu) {
-  float4 f = *reinterpret_cast<const float4*>(xp);
-  f.x = act(f.x * sc + bi, silu);
-  f.y = act(f.y * sc + bi, silu);
-  f.z = act(f.z * sc + bi, silu);
-  f.w = act(f.w * sc + bi, silu);
-  *reinterpret_cast<float4*>(yp) = f;
-}
-
-__device__ __forceinline__ void apply_vec(const __nv_bfloat16* xp, __nv_bfloat16* yp, float sc,
-                                          float bi, int silu) {
-  uint4 raw = *reinterpret_cast<const uint4*>(xp);
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    f.x = act(f.x * sc + bi, silu);
-    f.y = act(f.y * sc + bi, silu);
-    h[i] = __float22bfloat162_rn(f);
-  }
-  *reinterpret_cast<uint4*>(yp) = raw;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float y) { *p = y; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float y) { *p = __float2bfloat16(y); }
 
 // grid (n * c, blocks per row).  Row nc holds the hw elements of channel
 // c = nc % C of sample n = nc / C.
@@ -74,11 +44,12 @@ gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restr
   if (vec) {  // hw % VEC == 0 and both pointers 16-byte aligned
     for (long long i = ((long long)blockIdx.y * GA_THREADS + threadIdx.x) * VEC; i < hw;
          i += (long long)gridDim.y * GA_THREADS * VEC)
-      apply_vec(xr + i, yr + i, sc, bi, silu);
+      *reinterpret_cast<uint4*>(yr + i) =
+          gn::apply16(*reinterpret_cast<const uint4*>(xr + i), sc, bi, silu, xr);
   } else {
     for (long long i = (long long)blockIdx.y * GA_THREADS + threadIdx.x; i < hw;
          i += (long long)gridDim.y * GA_THREADS)
-      store(yr + i, act(to_f32(xr[i]) * sc + bi, silu));
+      gn::store(yr + i, gn::act(gn::to_f32(xr[i]) * sc + bi, silu));
   }
 }
 
@@ -103,7 +74,7 @@ cudaError_t launch(const void* x, void* y, const float* mean, const float* rstd,
 extern "C" {
 
 // x, y: (n, c, hw) contiguous in the activation dtype.  mean, rstd: f32
-// (n * groups,) from sidlsg_gn_stats.  gamma, beta: f32 (c,).  dtype: 0 = f32,
+// (n * groups,) from sidlsg_gn_stats_clustered.  gamma, beta: f32 (c,).  dtype: 0 = f32,
 // 1 = bf16.  Returns a cudaError_t.
 int sidlsg_gn_apply(const void* x, void* y, const void* mean, const void* rstd, const void* gamma,
                     const void* beta, int n, int c, int groups, long long hw, int silu, int dtype,

@@ -2,7 +2,10 @@
 // (flash_attn_fwd.cu) and K4 (flash_attn_bwd.cu): mbarriers, TMA tensor
 // loads and bulk reduce-adds, wgmma with shared-memory descriptors, register
 // rebalancing between warpgroups, the cp.async loader of the f32 tiles and
-// the 3xTF32 split for f32 products on the tensor cores.
+// the 3xTF32 split for f32 products on the tensor cores; and, for the
+// GroupNorm kernels K2 (gn_stats.cu) and K8 (gn_fused.cu), 1-D bulk copies
+// and thread-block clusters (rank, split barrier, stores into another
+// block's shared memory).
 //
 // Shared-memory tile layout of the bf16 path ("column blocks"): a tile of R
 // rows x DP columns (DP a multiple of 16) is stored as DP / 16 blocks of
@@ -81,6 +84,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global memory to this block's shared
+// memory as one bulk copy, both addresses 16-byte aligned; completion is
+// counted on `bar` in bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Make this thread's generic-proxy shared-memory writes visible to the async
 // proxy (wgmma operand reads, bulk copies).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -115,6 +129,47 @@ __device__ __forceinline__ void bulk_wait() {
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------ clusters
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// The cluster barrier in two halves, executed by every thread of every
+// block of the cluster: arrive, then wait for all to have arrived.  Arrive
+// and wait alternate.  The relaxed arrive orders no memory; the plain one
+// releases this thread's writes (shared memory of other blocks included) to
+// the threads that pass the matching wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Store (a, b) into the shared memory of block `rank` of the cluster, at the
+// offset that `local` has in this block's.  The target must have started:
+// pass one cluster barrier after its start first.
+__device__ __forceinline__ void st_cluster_f32x2(uint32_t local, uint32_t rank, float a, float b) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote), "f"(a), "f"(b)
+               : "memory");
 }
 
 // ---------------------------------------------------------- warpgroups

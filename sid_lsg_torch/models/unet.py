@@ -191,17 +191,19 @@ _DECODER_PREFIXES = ("up_blocks.", "conv_norm_out.", "conv_out.")
 def unet_apply_fn(config: UNetConfig, dtype: torch.dtype, remat_policy: Optional[str] = None,
                   encoder_only: bool = False) -> UNetApplyP:
     """``apply(params, x, t, c)``: the UNet on a dict of parameter tensors
-    (diffusers keys), each cast to ``dtype`` at apply time except those of
-    the modules that keep f32 (``layers.keeps_f32``).  The module itself
-    holds no weights (meta).  With ``encoder_only`` it returns the bottleneck
-    map and casts only the parameters that path reads."""
+    (diffusers keys), each cast to ``dtype`` at apply time; those of the
+    modules that keep f32 (``layers.keeps_f32``) are brought to f32 instead,
+    so a teacher held in bf16 (``--teacher-bf16``) normalises in f32 on its
+    bf16-rounded parameters, as the JAX norms promote them.  The module
+    itself holds no weights (meta).  With ``encoder_only`` it returns the
+    bottleneck map and casts only the parameters that path reads."""
     with torch.device("meta"):
         skeleton = UNet2DCondition(config, remat_policy=remat_policy)
     keep = frozenset(f"{name}.{p}" for name, m in skeleton.named_modules() if keeps_f32(m)
                      for p, _ in m.named_parameters())
 
     def apply(params: Params, x: torch.Tensor, t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        cast = {k: v if k in keep else v.to(dtype) for k, v in params.items()
+        cast = {k: v.float() if k in keep else v.to(dtype) for k, v in params.items()
                 if not (encoder_only and k.startswith(_DECODER_PREFIXES))}
         return functional_call(skeleton, cast, (x, t, c), {"encoder_only": encoder_only})
 

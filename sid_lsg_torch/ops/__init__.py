@@ -16,6 +16,8 @@ from .attention import (
 from .bias_act import activation_funcs, bias_act, bias_act_fwd, bias_act_ref
 from .groupnorm import (
     gn_apply,
+    gn_fused,
+    gn_plan,
     gn_apply_ref,
     gn_stats,
     gn_stats_ref,
@@ -40,6 +42,8 @@ __all__ = [
     "flash_attn_fwd",
     "gn_apply",
     "gn_apply_ref",
+    "gn_fused",
+    "gn_plan",
     "gn_stats",
     "gn_stats_ref",
     "group_norm",

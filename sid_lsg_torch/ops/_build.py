@@ -38,7 +38,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "sidlsg_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "sidlsg_gn_stats": [_P, _P, _P, _P, _I, _L, _I, _L, _F, _I, _P],
+    "sidlsg_gn_stats_clustered": [_P, _P, _P, _I, _L, _I, _F, _I, _P],
+    "sidlsg_gn_fused": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _F, _I, _I, _P],
     "sidlsg_gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P],
     "sidlsg_flash_attn_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_flash_attn_bwd_dq": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],

@@ -12,7 +12,7 @@ from collections import Counter
 from typing import Dict, Hashable
 
 KERNELS = ("flash_attn_fwd", "gn_stats", "gn_apply", "flash_attn_bwd", "flash_attn_bwd_dq",
-           "flash_attn_bwd_dkv", "bias_act")
+           "flash_attn_bwd_dkv", "bias_act", "gn_fused")
 
 _launches: Dict[str, Counter] = {name: Counter() for name in KERNELS}
 

@@ -28,6 +28,7 @@ from sid_lsg_tpu.models.layers import timestep_embedding as jax_timestep_embeddi
 from sid_lsg_torch.diffusion.ddpm import DDPMScheduler, SchedulerConfig  # noqa: E402
 from sid_lsg_torch.models import TINY, AutoencoderKL, CLIPTextModel, UNet2DCondition, params_from_jax  # noqa: E402
 from sid_lsg_torch.models.layers import timestep_embedding  # noqa: E402
+from sid_lsg_torch.models.unet import unet_apply_fn  # noqa: E402
 
 torch.set_num_threads(2)
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "tiny_hf_ckpt")
@@ -89,6 +90,35 @@ def test_unet_matches_jax(jax_params):
     with torch.no_grad():
         out = port(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(t), torch.from_numpy(ctx))
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("encoder_only", [False, True])
+def test_bf16_teacher_matches_jax_bf16_teacher(jax_params, encoder_only):
+    """``--teacher-bf16``: every teacher tensor cast to bf16 (norm scales and
+    biases included), applied with bf16 compute, on both sides.  The port's
+    norms compute in f32 on the bf16-rounded parameters, as flax promotes
+    them.  Tolerance: relative L2 <= 3e-2 and max abs <= 3e-2 * max|ref|;
+    bf16 rounds at other places in the two frameworks, and the JAX bf16
+    output alone is 1.3e-2 in relative L2 from its f32 output."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    t = np.array([625, 37], dtype=np.int32)
+    ctx = rng.standard_normal((2, 77, 32)).astype(np.float32)
+    teacher = jax.tree_util.tree_map(lambda p: p.astype(jnp.bfloat16), jax_params["unet"])
+    unet = JaxUNet(jax_configs.TINY.unet, dtype=jnp.bfloat16)
+    ref = jax.jit(lambda p, a, b, c: unet.apply({"params": p}, a, b, c, encoder_only=encoder_only))(
+        teacher, x, t, ctx)
+    ref = np.asarray(ref, np.float32)
+    port = {k: v.to(torch.bfloat16) for k, v in params_from_jax(jax_params["unet"], TINY, "unet").items()}
+    apply = unet_apply_fn(TINY.unet, torch.bfloat16, encoder_only=encoder_only)
+    with torch.no_grad():
+        out = apply(port, torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(t),
+                    torch.from_numpy(ctx))
+    assert out.dtype == torch.bfloat16
+    assert all(v.dtype == torch.bfloat16 for v in port.values())  # the teacher stays bf16
+    got = out.float().permute(0, 2, 3, 1).numpy()
+    assert np.linalg.norm(got - ref) <= 3e-2 * np.linalg.norm(ref)
+    np.testing.assert_allclose(got, ref, atol=3e-2 * float(np.abs(ref).max()), rtol=0)
 
 
 def test_vae_decode_matches_jax(jax_params):

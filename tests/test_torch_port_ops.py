@@ -105,6 +105,97 @@ def test_group_norm_matches_jax_ref_sd_channels(silu):
     np.testing.assert_allclose(_port_gn(x, gamma, beta, 32, 1e-5, silu), np.asarray(ref), **F32)
 
 
+@pytest.mark.parametrize("silu", [False, True])
+def test_gn_fused_matches_pallas_single_block(silu):
+    """K8's wrapper on a CPU tensor (its plain version) against the Pallas
+    kernel K8 replaces, at an SD channel count."""
+    x, gamma, beta = _gn_inputs(4, (2, 8, 8, 256))
+    with pltpu.force_tpu_interpret_mode():
+        ref = _gn_silu_pallas_fwd(x, gamma, beta, 32, 1e-5, silu)
+    y = ops.gn_fused(_nchw(x), torch.from_numpy(gamma), torch.from_numpy(beta), 32, 1e-5, silu)
+    np.testing.assert_allclose(_nhwc(y), np.asarray(ref), **F32)
+
+
+def _sd15_group_norms():
+    """{(shape, dtype, groups, silu): calls} of every GroupNorm of the SD1.5
+    serving batch (UNet at batch 4, VAE decode at batch 4) and train step
+    (UNet at batch 4 and, CFG-doubled, 8), bf16 compute, from forwards on
+    the meta device: no weights, GroupNorm and attention stubbed."""
+    from collections import Counter
+
+    from sid_lsg_torch.models import SD15
+    from sid_lsg_torch.models.layers import to_compute_dtype
+    from sid_lsg_torch.models.unet import UNet2DCondition
+    from sid_lsg_torch.models.vae import AutoencoderKL
+
+    seen = {"serving": Counter(), "train": Counter()}
+    record = [None]
+
+    def group_norm(x, gamma, beta, num_groups=32, eps=1e-5, silu=False):
+        record[0][(tuple(x.shape), x.dtype, num_groups, silu)] += 1
+        return x
+
+    def attention(q, k, v, causal=False):
+        return q.new_empty(q.shape[:-1] + v.shape[-1:])
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ops, "group_norm", group_norm)
+    mp.setattr(ops, "attention", attention)
+    try:
+        with torch.device("meta"):
+            unet = to_compute_dtype(UNet2DCondition(SD15.unet), torch.bfloat16)
+            vae = to_compute_dtype(AutoencoderKL(SD15.vae), torch.bfloat16)
+            run = lambda b: unet(torch.empty(b, 4, 64, 64), torch.zeros(b, dtype=torch.long),
+                                 torch.empty(b, 77, SD15.unet.cross_attention_dim))
+            record[0] = seen["serving"]
+            run(4)
+            vae.decode(torch.empty(4, 4, 64, 64))
+            record[0] = seen["train"]
+            run(4)
+            run(8)
+    finally:
+        mp.undo()
+    return seen
+
+
+def test_gn_plan_routes_every_sd15_group_norm():
+    """Every map the JAX single-block kernel takes (HW * C * 4 <= 6 MiB) goes
+    to K8; the VAE's 256x256 and 512x512 maps go to K2 + K3; K8's slices
+    cover the span and each fits the shared memory it asks for."""
+    from sid_lsg_torch.ops import groupnorm
+
+    seen = _sd15_group_norms()
+    assert sum(seen["serving"].values()) == 91  # 61 in the UNet, 30 in the VAE decoder
+    routes = {}
+    for key in set(seen["serving"]) | set(seen["train"]):
+        shape, dtype, groups, _ = key
+        route, cluster = ops.gn_plan(shape, dtype, groups)
+        routes[key] = route
+        assert cluster in (1, 2, 4, 8, 16), key
+        if np.prod(shape[1:]) * 4 <= 6 * 2**20:
+            assert route == "fused", key
+        if shape[2] >= 256:
+            assert route == "tiled", key
+        if route == "fused":
+            span = shape[1] // groups * np.prod(shape[2:])
+            smem = groupnorm.fused_smem_bytes(shape, dtype, groups, cluster)
+            assert smem <= groupnorm._SMEM_PER_BLOCK, key
+            assert cluster * (smem - 8) >= span * dtype.itemsize, key
+    # A span K8's blocks could not hold in their shared memory goes to K2 + K3.
+    assert ops.gn_plan((1, 49152, 1, 1), torch.float32, 1)[0] == "tiled"
+    fused = sum(n for k, n in seen["serving"].items() if routes[k] == "fused")
+    assert fused >= 57  # the serving batch's single-block maps, at least
+    assert all(routes[k] == "fused" for k in seen["train"])
+    # Every batch size and both dtypes: K8's slices fit the shared memory.
+    for shape, _, groups, _ in routes:
+        for b in range(1, 17):
+            for dtype in (torch.bfloat16, torch.float32):
+                route, cluster = ops.gn_plan((b,) + shape[1:], dtype, groups)
+                if route == "fused":
+                    smem = groupnorm.fused_smem_bytes((b,) + shape[1:], dtype, groups, cluster)
+                    assert smem <= groupnorm._SMEM_PER_BLOCK, (b, shape, dtype)
+
+
 def test_group_norm_clamps_negative_variance_like_jax_ref():
     """Groups of one constant value near 100: the one-pass f32 variance
     E[x^2] - E[x]^2 cancels to rounding noise, negative in some groups, where

@@ -106,6 +106,19 @@ def test_trainer_refuses_what_is_not_ported(field, value, item):
         Trainer(cfg)
 
 
+def test_trainer_steps_with_a_bf16_teacher():
+    """``--bf16 1 --teacher-bf16 1``: the frozen teacher is held in bf16,
+    its norm parameters too, and a step gives finite losses (the norms
+    bring their parameters to f32 at apply time)."""
+    tr = Trainer(TrainConfig(model="tiny", device="cpu", batch_size=4, microbatch=2, total_kimg=1,
+                             kimg_per_tick=0, state_dump_ticks=0, use_bf16=True, teacher_bf16=True))
+    assert all(v.dtype == torch.bfloat16 for v in tr.teacher.values())
+    m = tr.step()
+    for k in ("fake_score_loss", "g_loss"):
+        assert np.isfinite(float(m[k])), k
+    assert all(v.dtype == torch.bfloat16 for v in tr.teacher.values())
+
+
 SIDA = dict(model="tiny", device="cpu", batch_size=2, microbatch=2, total_kimg=1, kimg_per_tick=0,
             state_dump_ticks=0, use_bf16=False, adv_weight_G=0.1, adv_vit="tiny", seed=1)
 
