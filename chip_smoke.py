@@ -7,10 +7,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 ``--baseline ROOT`` names another checkout (an unpacked ``git archive`` of
 a parent commit, say): its kernels are built from ``ROOT/sid_lsg_torch/csrc``
-and its K1 and K4 are timed beside this tree's at every shape of phases 6,
-11 and 16, in the same run on the same card; where it has the two-kernel K2
-(``sidlsg_gn_stats`` with a scratch buffer), its K2 + K3 are timed beside
-this tree's GroupNorm route at every GroupNorm key.
+and its K1, K4, K6 and K7 are timed beside this tree's at every shape of
+phases 6, 11 and 16, in the same run on the same card (its K7 through its
+own ``sid_lsg_torch/ops/bias_act.py``, ``load_baseline_bias_act``);
+where it has the two-kernel K2 (``sidlsg_gn_stats`` with a scratch buffer),
+its K2 + K3 are timed beside this tree's GroupNorm route at every GroupNorm
+key.
 
 It drives the port's three paths at full SD1.5 width on random weights from
 a seed, through the CUDA kernels built from ``sid_lsg_torch/csrc``: one-step
@@ -19,9 +21,9 @@ the SiD-LSG distillation train step (phases 7-11) and the SiDA adversarial
 train step (phases 12-16).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time,
-   the card's name and power limit, the registers and spills of K1's and
-   K4's kernels (``-Xptxas -v``) and the dynamic shared memory of each of
-   their instantiations.
+   the card's name and power limit, the registers and spills of K1's, K4's
+   and K6's kernels (``-Xptxas -v``) and the dynamic shared memory of each
+   of their instantiations.
 2. Warm-up generation: text -> UNet -> x0 -> VAE decode once; the launch
    counters record every distinct kernel input shape of the path; x0 must be
    finite and the images of the right shape and not constant.
@@ -67,8 +69,9 @@ train step (phases 12-16).
    where the backward sweep launches K1 once per attention of the forwards
    that carry grad.
 8. Kernel check of the training path: K4, K5 and K6 against
-   ``flash_attn_bwd_ref`` at every shape the step gave K4, and K4 against
-   K5 + K6; K1, K8, K2 and K3 at the step's shapes phase 3 did not check.  The
+   ``flash_attn_bwd_ref`` at every shape the step gave K4, K4 against
+   K5 + K6, and K5 + K6 run twice for the same bits; K1, K8, K2 and K3 at
+   the step's shapes phase 3 did not check.  The
    backward's outputs are linear in dO and differ in size by orders of
    magnitude, so each is compared after scaling by the power of two that
    brings its plain version to RMS about 1 (the same as scaling dO, exactly
@@ -81,12 +84,16 @@ train step (phases 12-16).
    device memory; one step under torch.profiler (busy, idle share, top
    kernels); the step's FLOPs (FlopCounterMode plus the attention kernels'
    FLOPs from the recorded shapes, which the counter cannot see) as ``mfu``
-   over 989 TFLOP/s.
+   over 989 TFLOP/s.  Then the same trainer under SIDLSG_FLASH_BWD=twopass
+   (restored after): counters zeroed, one step (the two-pass path's main
+   run: losses finite, K5 and K6 once per attention backward, K4 never),
+   and the median of 3 steps beside the fused median.
 11. Backward kernel timing: K4, K5 and K6 at the step's shapes with CUDA
-   events, summed over one step (K4's launches x time; K5 and K6 as if they
-   replaced K4), beside bound, plain version and SDPA's backward (forward +
+   events, each printed at each shape and summed over one step (K4's
+   launches x time; K5 and K6 at the two-pass step's launches, which are
+   K4's), beside bound, plain version and SDPA's backward (forward +
    backward minus forward); K1 at the step's shapes, summed over one step
-   (with ``--baseline``, the baseline's K1 and K4 beside them); the
+   (with ``--baseline``, the baseline's K1, K4 and K6 beside them); the
    GroupNorm kernels at the step's keys as phase 6 times them, summed over
    one step.
 
@@ -115,9 +122,15 @@ train step (phases 12-16).
    sides are required below 1e-6 of the largest head gradient instead.
 15. SiDA step timing: median seconds over 5 steps, images/s, peak device
    memory, one traced step; printed beside phase 10's.
-16. SiDA kernel timing, summed over one step: K7 beside its bound, plain
-   version and ``torch.add``; K4 (and K5 + K6) at the new f32 shapes beside
-   bound, plain version and SDPA's backward, with the SDPA backend named;
+16. SiDA kernel timing, summed over one step: K7 host-paced (CUDA events
+   around back-to-back calls, as in the kernels line), on the device alone
+   (calls queued behind a spin kernel) and its host time per call
+   (``time.perf_counter`` around calls with no synchronisation), each the
+   median and range over five rounds and beside ``torch.add``'s (and the
+   baseline K7's), with its bound and plain version; K7 at (8, 512, 32, 32) in f32 and bf16
+   on the device alone beside its bytes bound; K4, K5 and K6 each at the
+   new f32 shapes beside bound, plain version and SDPA's backward, with the
+   SDPA backend named;
    K1 at the step's shapes that phases 6 and 11 did not time (the DINO
    ViT's (4, 6, 197, 64) f32); with ``--baseline``, the baseline's K1 and
    K4 beside them; the GroupNorm kernels at the step's keys, summed over one
@@ -129,10 +142,13 @@ Any failure raises and exits non-zero.  The last line is the result object.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import json
 import math
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -162,8 +178,7 @@ SOURCES = {
     "flash_attn_bwd": ("sid_lsg_torch/csrc/flash_attn_bwd.cu", "sid_lsg_tpu/ops/attention.py:234"),
     "flash_attn_bwd_dq": ("sid_lsg_torch/csrc/flash_attn_bwd_twopass.cu",
                           "sid_lsg_tpu/ops/attention.py:326"),
-    "flash_attn_bwd_dkv": ("sid_lsg_torch/csrc/flash_attn_bwd_twopass.cu",
-                           "sid_lsg_tpu/ops/attention.py:378"),
+    "flash_attn_bwd_dkv": ("sid_lsg_torch/csrc/flash_attn_bwd.cu", "sid_lsg_tpu/ops/attention.py:378"),
     "bias_act": ("sid_lsg_torch/csrc/bias_act.cu", "sid_lsg_tpu/ops/bias_act.py:92"),
 }
 SERVING_KERNELS = ("flash_attn_fwd", "gn_fused", "gn_stats", "gn_apply")
@@ -178,6 +193,7 @@ TRAIN_ARGS = ["--outdir", "chiprun_out/train", "--sd_model", "sd15", "--batch", 
               "--remat-policy", "flash", "--max-ticks", "1"]
 TRAIN_BATCH = 4
 TIMED_STEPS = 5
+TWOPASS_STEPS = 3  # timed steps of the same trainer under SIDLSG_FLASH_BWD=twopass
 # The SiDA path: the train step above with the adversarial terms through the
 # projected DINO ViT-S/16 pixel judge (random backbone, synthetic real latents).
 SIDA_ARGS = TRAIN_ARGS + ["--adv_weight_d", "0.1", "--adv_weight_g", "0.1", "--adv_tower", "dino",
@@ -394,26 +410,52 @@ def baseline_ms(fn) -> float:
         return time_ms(fn)
 
 
+# The kernel functions of K1, K4 and K6 (K6 is K4's sweep without its dQ
+# section, under names of its own), by their names in the build log.
+PTXAS_KERNELS = {"fwd_bf16_wgmma": "K1", "fwd_f32_tf32x3": "K1", "bwd_bf16_wgmma": "K4",
+                 "bwd_f32_tf32x3": "K4", "bwd_dkv_bf16_wgmma": "K6", "bwd_dkv_f32_tf32x3": "K6"}
+
+
+def mangled_function(name: str):
+    """The function's own name in an Itanium-mangled name: the last of the
+    length-prefixed components of ``_ZN<namespaces><name>[I...]E...`` (nvcc
+    names an anonymous namespace after the file and a hash), or the one
+    component of ``_Z<name>...``; None for anything else."""
+    m = re.match(r"_Z(N?)", name)
+    func, i = None, m.end() if m else len(name)
+    while (n := re.match(r"\d+", name[i:])):
+        i += n.end()
+        func, i = name[i:i + int(n.group())], i + int(n.group())
+        if not m.group(1):
+            break
+    return func
+
+
 def print_kernel_build(lib_path) -> None:
-    """Registers and spills of K1's and K4's kernels from ``-Xptxas -v``, and
-    the dynamic shared memory each instantiation's launch takes."""
+    """Registers and spills of K1's, K4's and K6's kernels from ``-Xptxas
+    -v``, and the dynamic shared memory each instantiation's launch takes."""
     from sid_lsg_torch.ops import _build
 
-    rows = [r for r in _build.ptxas_report(lib_path)
-            if any(k in r[0] for k in ("fwd_bf16_wgmma", "fwd_f32_tf32x3", "bwd_bf16_wgmma",
-                                       "bwd_f32_tf32x3"))]
-    names = [r[0] for r in rows]
+    rows = []
+    for row in _build.ptxas_report(lib_path):
+        if mangled_function(row[0]) in PTXAS_KERNELS:
+            rows.append((PTXAS_KERNELS[mangled_function(row[0])],) + row)
+    require({r[0] for r in rows} == set(PTXAS_KERNELS.values()),
+            f"the build log names kernels of only {sorted({r[0] for r in rows})}")
+    names = [r[1] for r in rows]
     if shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
                                text=True).stdout.split("\n")
-    for name, (_, regs, st, ld) in zip(names, rows):
-        print(f"[ptxas] {name.strip()}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    for name, (kernel, _, regs, st, ld) in zip(names, rows):
+        print(f"[ptxas] {kernel} {name.strip()}: {regs} registers, spill stores {st} B, spill "
+              f"loads {ld} B")
     lib = _build.library()
     for code, dps in ((1, (16, 32, 48, 64, 80, 160)), (0, (64, 192, 320, 512))):
         for dp in dps:
             print(f"[smem] {'bf16' if code else 'f32'} head dim {dp}: K1 "
                   f"{lib.sidlsg_flash_attn_fwd_smem(code, dp)} B, K4 "
-                  f"{lib.sidlsg_flash_attn_bwd_smem(code, dp)} B of dynamic shared memory")
+                  f"{lib.sidlsg_flash_attn_bwd_smem(code, dp)} B, K6 "
+                  f"{lib.sidlsg_flash_attn_bwd_dkv_smem(code, dp)} B of dynamic shared memory")
 
 
 def time_fwd_keys(keys, gen, label: str) -> dict:
@@ -891,9 +933,10 @@ def compare_tiny(label, card, cpu) -> None:
 
 def check_bwd(key, gen, max_abs):
     """K4, K5 and K6 against the plain backward at one shape K4 was launched
-    at, and K4 against K5 + K6, at the tolerance of the shape's dtype (each
-    output scaled as phase 8 says); raises ``max_abs`` per kernel to its
-    largest error; returns ``bwd_cases(key, gen)``."""
+    at, K4 against K5 + K6, at the tolerance of the shape's dtype (each
+    output scaled as phase 8 says), and K5 + K6 run twice for the same bits;
+    raises ``max_abs`` per kernel to its largest error; returns
+    ``bwd_cases(key, gen)``."""
     import torch
 
     cases, plain, sdpa = bwd_cases(key, gen)
@@ -906,7 +949,51 @@ def check_bwd(key, gen, max_abs):
                             check_outputs(f"{name} {key}", outs[name], ref, tol, scale_each=True))
     check_outputs(f"flash_attn_bwd vs two-pass {key}", outs["flash_attn_bwd"],
                   outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"], tol, scale_each=True)
+    again = cases["flash_attn_bwd_dq"][0]() + cases["flash_attn_bwd_dkv"][0]()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in
+            zip(outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"], again)]
+    print(f"[check] K5 + K6 {key}: two runs bit for bit equal {same}")
+    require(all(same), f"K5 + K6 at {key}: two runs differ")
     return cases, plain, sdpa
+
+
+def twopass_steps(trainer, fused_launches: dict) -> dict:
+    """Phase 10's second half: ``trainer`` under SIDLSG_FLASH_BWD=twopass
+    (restored after).  Counters zeroed, one step (the two-pass path's main
+    run): losses finite, K5 and K6 once per attention backward (as many as
+    K4's launches in the fused step) and no K4; then the median of
+    TWOPASS_STEPS timed steps.  Returns that run's launches and the median."""
+    import torch
+
+    from sid_lsg_torch.ops import registry
+
+    saved = os.environ.get("SIDLSG_FLASH_BWD")
+    os.environ["SIDLSG_FLASH_BWD"] = "twopass"
+    try:
+        registry.reset()
+        metrics = trainer.step()
+        torch.cuda.synchronize()
+        launches = registry.counts()
+        losses = {k: float(metrics[k]) for k in ("fake_score_loss", "g_loss")}
+        print(f"[twopass] main step: losses {losses}, launches {launches}")
+        require(all(math.isfinite(x) for x in losses.values()), f"twopass losses not finite: {losses}")
+        want = fused_launches["flash_attn_bwd"]
+        require(launches["flash_attn_bwd"] == 0 and want > 0
+                and launches["flash_attn_bwd_dq"] == launches["flash_attn_bwd_dkv"] == want,
+                f"twopass: K5/K6/K4 launches {launches} where K5 = K6 = {want} and K4 = 0")
+        step_s = []
+        for _ in range(TWOPASS_STEPS):
+            t0 = time.perf_counter()
+            trainer.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        if saved is None:
+            os.environ.pop("SIDLSG_FLASH_BWD", None)
+        else:
+            os.environ["SIDLSG_FLASH_BWD"] = saved
+    return {"launches": launches, "median_s": statistics.median(step_s), "step_s": step_s}
 
 
 def train_phases(card: str, gen, serving_keys):
@@ -1017,6 +1104,9 @@ def train_phases(card: str, gen, serving_keys):
           f"convolutions and projections included), attention kernels {attn:.6e}, total "
           f"{total:.6e}; mfu {total / med / PEAK_FLOPS['torch.bfloat16']:.4f} (over 989 TFLOP/s "
           f"at the median step time)")
+    twopass = twopass_steps(trainer, train_launches)
+    print(f"[train-time] seconds per step under SIDLSG_FLASH_BWD=twopass (K5 + K6): "
+          f"{twopass['step_s']}, median {twopass['median_s']}; fused (K4): median {med}; on {card}")
     del trainer
     torch.cuda.empty_cache()
     phase10 = {"median_s": med, "images_per_s": TRAIN_BATCH / med, "peak_gib": peak_gib}
@@ -1033,7 +1123,7 @@ def train_phases(card: str, gen, serving_keys):
             ops_ms = flops / PEAK_FLOPS[key[2]] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             ms = time_ms(kern)
-            base = baseline_ms(kern) if name == "flash_attn_bwd" else 0.0
+            base = baseline_ms(kern) if name != "flash_attn_bwd_dq" else 0.0
             r = rows[name]
             for f, x in (("ms", ms), ("base_ms", base), ("plain_ms", plain_ms),
                          ("bound_ms", max(ops_ms, bytes_ms)), ("ops_ms", ops_ms),
@@ -1044,19 +1134,20 @@ def train_phases(card: str, gen, serving_keys):
                   f"{sdpa_bwd_ms:.4f}")
     for name in BWD_KERNELS:
         r = rows[name]
+        launched = train_launches if name == "flash_attn_bwd" else twopass["launches"]
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": train_launches[name],
+            "replaces": SOURCES[name][1], "launches": launched[name],
             "max_abs_err": max_abs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "operations" if r["ops_ms"] > r["bytes_ms"] else "bytes",
             "library_ms": r["library_ms"] if name == "flash_attn_bwd" else None,
         })
-    print(f"[time] per train step: K4 {rows['flash_attn_bwd']['ms']:.4f} ms, baseline "
-          f"{rows['flash_attn_bwd']['base_ms']:.4f} ms, bound "
-          f"{rows['flash_attn_bwd']['bound_ms']:.4f} ms, K5 + K6 "
-          f"{rows['flash_attn_bwd_dq']['ms'] + rows['flash_attn_bwd_dkv']['ms']:.4f} ms, SDPA "
-          f"backward {rows['flash_attn_bwd']['library_ms']:.4f} ms")
+    k4, k5, k6 = (rows[n] for n in BWD_KERNELS)
+    print(f"[time] per train step: K4 {k4['ms']:.4f} ms, baseline {k4['base_ms']:.4f} ms, bound "
+          f"{k4['bound_ms']:.4f} ms; K5 {k5['ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms; K6 "
+          f"{k6['ms']:.4f} ms, baseline {k6['base_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms; "
+          f"K5 + K6 {k5['ms'] + k6['ms']:.4f} ms; SDPA backward {k4['library_ms']:.4f} ms")
     time_fwd_keys(train_keys["flash_attn_fwd"], gen, "train step")
     time_gn_keys(train_keys, gen, "train step")
     return entries, train_keys, phase10
@@ -1070,10 +1161,34 @@ def fingerprints(tree) -> "torch.Tensor":
                             for v in tree.values()]).cpu()
 
 
-def bias_act_case(key, gen, act=None, gain=None, clamp=None):
+def load_baseline_bias_act(root: str):
+    """The baseline's ``sid_lsg_torch/ops/bias_act.py``, loaded beside this
+    tree's package (its relative imports take this tree's ``_build`` and
+    ``registry``) with its ``library`` bound to the baseline's kernels: the
+    baseline's K7 behind the baseline's own host path."""
+    import importlib.util
+
+    import sid_lsg_torch.ops  # noqa: F401  (the package the module's relative imports name)
+
+    path = Path(root) / "sid_lsg_torch" / "ops" / "bias_act.py"
+    spec = importlib.util.spec_from_file_location("sid_lsg_torch.ops._baseline_bias_act", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    mod.library = lambda: BASELINE
+    return mod
+
+
+# The baseline's bias_act module (None without ``--baseline``).
+BASELINE_BIAS_ACT = None
+
+
+def bias_act_case(key, gen, act=None, gain=None, clamp=None) -> dict:
     """K7 at one recorded launch key (or that shape with another activation,
-    gain and clamp): (kernel fn, plain fn, library fn or None, tolerance,
-    (bytes, operations, type))."""
+    gain and clamp), on fresh inputs: the kernel, its plain version, the
+    library call (``torch.add`` for a linear bias, else None), the
+    baseline's K7 (None without ``--baseline``), the tolerance and (bytes,
+    operations, type)."""
     import torch
 
     from sid_lsg_torch import ops
@@ -1088,21 +1203,84 @@ def bias_act_case(key, gen, act=None, gain=None, clamp=None):
     b = torch.randn(shape[dim], generator=gen, device="cuda").to(dtype) if has_bias else None
     bview = None if b is None else b.view([-1 if i == dim else 1 for i in range(len(shape))])
     n, es = x.numel(), x.element_size()
-    work = (2 * n * es + (0 if b is None else b.numel() * es), 4 * n, "torch.float32")
-    lib = (lambda: torch.add(x, bview)) if act == "linear" and b is not None else None
-    return (lambda: ops.bias_act_fwd(x, b, dim, act, alpha, gain, clamp),
-            lambda: ops.bias_act_ref(x.float(), None if b is None else b.float(), dim, act, alpha,
-                                     gain, clamp),
-            lib, TOL_BF16 if dtype == torch.bfloat16 else TOL_F32, work)
+    return {"kern": lambda: ops.bias_act_fwd(x, b, dim, act, alpha, gain, clamp),
+            "plain": lambda: ops.bias_act_ref(x.float(), None if b is None else b.float(), dim,
+                                              act, alpha, gain, clamp),
+            "library": (lambda: torch.add(x, bview)) if act == "linear" and b is not None else None,
+            "baseline": BASELINE_BIAS_ACT and (lambda: BASELINE_BIAS_ACT.bias_act_fwd(
+                x, b, dim, act, alpha, gain, clamp)),
+            "tol": TOL_BF16 if dtype == torch.bfloat16 else TOL_F32,
+            "work": (2 * n * es + (0 if b is None else b.numel() * es), 4 * n, "torch.float32")}
 
 
 def check_bias_act(key, gen, label, **kw) -> float:
     import torch
 
-    kern, plain, _, tol, _ = bias_act_case(key, gen, **kw)
-    got, ref = kern(), plain()
+    c = bias_act_case(key, gen, **kw)
+    got, ref = c["kern"](), c["plain"]()
     torch.cuda.synchronize()
-    return check_outputs(f"bias_act {label} {key} {kw}", (got,), (ref,), tol)
+    return check_outputs(f"bias_act {label} {key} {kw}", (got,), (ref,), c["tol"])
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``time.perf_counter``
+    around ``calls`` calls with no synchronisation, after a synchronised
+    warm-up (what the host pays per call, whatever the device does)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+K7_ROUNDS = 5
+K7_TIMES = ("ms", "device_ms", "host_us")  # host-paced, device alone, host per call
+K7_PREFIXES = ("", "library_", "base_")  # K7, torch.add, the baseline's K7
+
+
+def time_bias_act(c) -> dict:
+    """K7 on one case of ``bias_act_case``, beside ``torch.add`` and the
+    baseline's K7 (0.0 where absent), in ``K7_ROUNDS`` rounds that take each
+    in turn: host-paced (``ms``: ``time_ms``, CUDA events around
+    back-to-back calls, as the attention kernels are timed), on the device
+    alone (``device_ms``: 100 calls queued behind the spin kernel) and host
+    time per call (``host_us``), each the median over the rounds with its
+    (least, most) under ``<name>_range``; the plain version host-paced; the
+    bound."""
+    nbytes, flops, op_type = c["work"]
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[op_type] * 1e3, nbytes / PEAK_BYTES * 1e3
+    fns = dict(zip(K7_PREFIXES, (c["kern"], c["library"], c["baseline"])))
+    samples = collections.defaultdict(list)
+    for _ in range(K7_ROUNDS):
+        for prefix, fn in fns.items():
+            if fn:
+                for name, timer in zip(K7_TIMES, (time_ms, lambda f: device_ms(f, iters=100),
+                                                  host_us)):
+                    samples[prefix + name].append(timer(fn))
+    row = {"plain_ms": time_ms(c["plain"]), "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+           "bytes_ms": bytes_ms}
+    for field in (p + name for p in K7_PREFIXES for name in K7_TIMES):
+        vals = samples.get(field, [0.0])
+        row[field] = statistics.median(vals)
+        row[field + "_range"] = (min(vals), max(vals))
+    return row
+
+
+def k7_text(row, field: str, scale: float, unit: str) -> str:
+    """One K7 time of ``time_bias_act``'s row (or a sum of rows) beside
+    torch.add's and the baseline's: medians, ranges and the ratio to
+    torch.add."""
+    def one(prefix):
+        lo, hi = row[prefix + field + "_range"]
+        return f"{row[prefix + field] * scale:.3f} [{lo * scale:.3f}-{hi * scale:.3f}]"
+    ratio = row[field] / row["library_" + field] if row["library_" + field] else 0.0
+    return (f"K7 {one('')} {unit} (torch.add {one('library_')}, K7/torch.add {ratio:.3f}; "
+            f"baseline K7 {one('base_')})")
 
 
 def sida_phases(card: str, gen, checked, phase10) -> dict:
@@ -1225,53 +1403,69 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
         compare_tiny(f"tiny-sida {tower}", tiny_card, tiny_cpu)
 
     # 16. SiDA kernel timing, summed over one step.
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-           "library_ms": 0.0}
+    tot = collections.defaultdict(float)
     for key, n in sorted(sida_keys["bias_act"].items(), key=lambda kv: str(kv[0])):
-        kern, plain, lib, _, (nbytes, flops, op_type) = bias_act_case(key, gen)
-        ops_ms, bytes_ms = flops / PEAK_FLOPS[op_type] * 1e3, nbytes / PEAK_BYTES * 1e3
-        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": max(ops_ms, bytes_ms),
-               "ops_ms": ops_ms, "bytes_ms": bytes_ms, "library_ms": time_ms(lib) if lib else 0.0}
-        for f in tot:
-            tot[f] += n * row[f]
-        print(f"[time] bias_act {key} x{n}: {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bound "
-              f"{row['bound_ms']:.7f}, torch.add {row['library_ms']:.5f}")
-    print(f"[time] per SiDA step: K7 {tot['ms']:.5f} ms, plain {tot['plain_ms']:.5f}, bound "
-          f"{tot['bound_ms']:.7f}, torch.add {tot['library_ms']:.5f}")
-    k4 = {"ms": 0.0, "base_ms": 0.0, "twopass_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
-          "sdpa_ms": 0.0}
+        row = time_bias_act(bias_act_case(key, gen))
+        for f, v in row.items():
+            if f.endswith("_range"):
+                tot[f] = tuple(n * x + y for x, y in zip(v, tot.get(f, (0.0, 0.0))))
+            else:
+                tot[f] += n * v
+        print(f"[k7-time] bias_act {key} x{n}, medians [ranges] over {K7_ROUNDS} rounds: "
+              f"host-paced {k7_text(row, 'ms', 1e3, 'us')}; device alone "
+              f"{k7_text(row, 'device_ms', 1e3, 'us')}; host per call "
+              f"{k7_text(row, 'host_us', 1.0, 'us')}; plain {row['plain_ms'] * 1e3:.3f} us; bound "
+              f"{row['bound_ms'] * 1e3:.5f} us")
+    calls = launches["bias_act"]
+    print(f"[k7-time] per SiDA step ({calls} launches): host-paced {k7_text(tot, 'ms', 1.0, 'ms')}; "
+          f"device alone {k7_text(tot, 'device_ms', 1.0, 'ms')}; plain {tot['plain_ms']:.5f} ms; "
+          f"bound {tot['bound_ms']:.7f} ms")
+    for dt in ("torch.float32", "torch.bfloat16"):
+        off = ((8, 512, 32, 32), dt, 1, "linear", True, 0.0, 1.0, -1.0)
+        row = time_bias_act(bias_act_case(off, gen))
+        print(f"[k7-time] bias_act {off} (off the path): device alone "
+              f"{k7_text(row, 'device_ms', 1e3, 'us')}; bytes bound {row['bytes_ms'] * 1e3:.3f} us "
+              f"(share {row['bytes_ms'] / row['device_ms']:.3f})")
+    k4 = dict.fromkeys(("ms", "base_ms", "k5_ms", "k6_ms", "k6_base_ms", "bound_ms", "k5_bound_ms",
+                        "k6_bound_ms", "plain_ms", "sdpa_ms"), 0.0)
     for key, (cases, plain, (sdpa_fwd, sdpa_both)) in bwd.items():
         n = sida_keys["flash_attn_bwd"][key]
-        kern, _, nbytes, flops = cases["flash_attn_bwd"]
-        ops_ms, bytes_ms = flops / PEAK_FLOPS[key[2]] * 1e3, nbytes / PEAK_BYTES * 1e3
-        ms, base, plain_ms = time_ms(kern), baseline_ms(kern), time_ms(plain)
-        twopass_ms = time_ms(cases["flash_attn_bwd_dq"][0]) + time_ms(cases["flash_attn_bwd_dkv"][0])
-        sdpa_ms = time_ms(sdpa_both) - time_ms(sdpa_fwd)
+        bounds = {name: max(flops / PEAK_FLOPS[key[2]], nbytes / PEAK_BYTES) * 1e3
+                  for name, (_, _, nbytes, flops) in cases.items()}
+        kern, k5, k6 = (cases[name][0] for name in BWD_KERNELS)
+        row = {"ms": time_ms(kern), "base_ms": baseline_ms(kern), "k5_ms": time_ms(k5),
+               "k6_ms": time_ms(k6), "k6_base_ms": baseline_ms(k6),
+               "bound_ms": bounds["flash_attn_bwd"], "k5_bound_ms": bounds["flash_attn_bwd_dq"],
+               "k6_bound_ms": bounds["flash_attn_bwd_dkv"], "plain_ms": time_ms(plain),
+               "sdpa_ms": time_ms(sdpa_both) - time_ms(sdpa_fwd)}
         q = torch.empty(key[0], device="cuda", dtype=getattr(torch, key[2].split(".")[1]))
         backend = SDPBackend(torch._fused_sdp_choice(q, q, q)).name
-        for f, x in (("ms", ms), ("base_ms", base), ("twopass_ms", twopass_ms),
-                     ("bound_ms", max(ops_ms, bytes_ms)), ("plain_ms", plain_ms),
-                     ("sdpa_ms", sdpa_ms)):
-            k4[f] += n * x
-        print(f"[time] flash_attn_bwd {key} x{n}: {ms:.4f} ms, baseline {base:.4f}, K5 + K6 "
-              f"{twopass_ms:.4f}, plain "
-              f"{plain_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f} "
-              f"({'operations' if ops_ms > bytes_ms else 'bytes'}), SDPA backward {sdpa_ms:.4f} "
-              f"({backend})")
-    print(f"[time] per SiDA step at the new f32 shapes: K4 {k4['ms']:.4f} ms, baseline "
-          f"{k4['base_ms']:.4f} ms, K5 + K6 "
-          f"{k4['twopass_ms']:.4f}, bound {k4['bound_ms']:.4f}, plain {k4['plain_ms']:.4f}, SDPA "
-          f"backward {k4['sdpa_ms']:.4f} ms")
+        for f in k4:
+            k4[f] += n * row[f]
+        print(f"[time] flash_attn_bwd {key} x{n}: K4 {row['ms']:.4f} ms (baseline "
+              f"{row['base_ms']:.4f}, bound {row['bound_ms']:.4f}); K5 {row['k5_ms']:.4f} (bound "
+              f"{row['k5_bound_ms']:.4f}); K6 {row['k6_ms']:.4f} (baseline {row['k6_base_ms']:.4f}, "
+              f"bound {row['k6_bound_ms']:.4f}); plain {row['plain_ms']:.4f}; SDPA backward "
+              f"{row['sdpa_ms']:.4f} ({backend})")
+    print(f"[time] per SiDA step at the new f32 shapes: K4 {k4['ms']:.4f} ms (baseline "
+          f"{k4['base_ms']:.4f}, bound {k4['bound_ms']:.4f}); K5 {k4['k5_ms']:.4f} ms (bound "
+          f"{k4['k5_bound_ms']:.4f}); K6 {k4['k6_ms']:.4f} ms (baseline {k4['k6_base_ms']:.4f}, "
+          f"bound {k4['k6_bound_ms']:.4f}); K5 + K6 {k4['k5_ms'] + k4['k6_ms']:.4f} ms; plain "
+          f"{k4['plain_ms']:.4f}; SDPA backward {k4['sdpa_ms']:.4f} ms")
     new_fwd = {key: n for key, n in sida_keys["flash_attn_fwd"].items()
                if key not in checked["flash_attn_fwd"]}
     time_fwd_keys(new_fwd, gen, "SiDA step at the shapes the train step lacks")
     time_gn_keys(sida_keys, gen, "SiDA step")
+    # ms, plain_ms and library_ms host-paced, as K1's and K4's; K7's and
+    # torch.add's device-alone time and host us per call beside them.
     return {"name": "bias_act", "route": "cuda", "source": SOURCES["bias_act"][0],
-            "replaces": SOURCES["bias_act"][1], "launches": launches["bias_act"],
+            "replaces": SOURCES["bias_act"][1], "launches": calls,
             "max_abs_err": max_abs, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
-            "library_ms": tot["library_ms"]}
+            "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
+            "library_device_ms": tot["library_device_ms"], "host_us": tot["host_us"] / calls,
+            "library_host_us": tot["library_host_us"] / calls}
 
 
 def main(argv=None) -> int:
@@ -1304,8 +1498,9 @@ def main(argv=None) -> int:
     print(f"[card] {card}")
     print_kernel_build(lib_path)
     if baseline:
-        global BASELINE
+        global BASELINE, BASELINE_BIAS_ACT
         BASELINE = load_baseline(baseline)
+        BASELINE_BIAS_ACT = load_baseline_bias_act(baseline)
 
     # 2. Warm-up generation; records every kernel input shape of the path.
     t0 = time.perf_counter()

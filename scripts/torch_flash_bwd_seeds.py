@@ -24,7 +24,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 SHAPES = [((8, 8, 4096, 40), 77), ((4, 8, 4096, 40), 77), ((8, 8, 1024, 80), 77),
-          ((8, 8, 256, 160), 77), ((4, 8, 1024, 80), 1024)]
+          ((8, 8, 256, 160), 77), ((4, 8, 1024, 80), 1024), ((4, 8, 4096, 40), 4096),
+          ((8, 8, 4096, 40), 4096), ((8, 8, 256, 160), 256)]
 SEEDS = range(12)
 
 

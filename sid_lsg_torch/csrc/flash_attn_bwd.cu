@@ -11,6 +11,16 @@
 // block adds its dS K into one zeroed f32 buffer by bulk reduce-add, cast to
 // the input dtype by a last small kernel.
 //
+// K6, the dK/dV kernel of the two-pass backward, replaces the dK/dV
+// pl.pallas_call of sid_lsg_tpu/ops/attention.py:_flash_bwd: it is this
+// sweep compiled without its dQ section (template flag DQ = false, kernels
+// bwd_dkv_bf16_wgmma and bwd_dkv_f32_tf32x3), so it has
+// no dS^T buffers, staging chunks or reduce-adds, and each block writes its
+// key tile's dK and dV once: with K5 (flash_attn_bwd_twopass.cu) it gives
+// the same gradients bit for bit on every run.  Its four products are
+// 8 S_q S_k D operations per (batch, head), against K4's 10 (both run dK's
+// split dS twice, K4 dQ's too).
+//
 // What bounds it on the H100: the five products are 10 S_q S_k D operations
 // per (batch, head) against (4 S_q + 4 S_k) D 2 bytes, far above the card's
 // ~295 operations per byte at the UNet's self-attention, so the tensor
@@ -44,15 +54,17 @@
 //   large dS element rounded to bf16 shows in it.  dS^T is therefore
 //   stored as a bf16 high part and a bf16 remainder (dS - high), two more
 //   16 KB buffers, and dQ_tile takes both products, as if dS had 16 bits
-//   of mantissa.  (The TPU kernel rounds ds to the input dtype before its
-//   dQ dot; K5 does the same split as here, in registers.)
+//   of mantissa.  dK, a sum over up to 4096 queries with cancellation,
+//   shows the same rounding: it takes both parts too, from registers.
+//   (The TPU kernel rounds ds to the input dtype before its dQ and dK
+//   dots; K5 does the same split for dQ, in registers.)
 //   Why these tiles: 64 queries a stage keep S^T and dP^T at 32 registers
 //   each, beside dK and dV (80 + 80 at D = 160, where dQ then runs in five
 //   chunks of 32 columns so that it fits too); 128 keys a block halve the
 //   passes over Q and dO, and the dQ reduce-adds, against 64; at D = 160 K,
 //   V, the Q and dO tiles, four dS^T buffers and two staging chunks take
 //   202 KB of the 227 KB, with one stage of Q and dO where smaller head
-//   dims have two.  ptxas allots 168 registers a thread at 384
+//   dims have two (K6, without dS^T and staging, has two at every D).  ptxas allots 168 registers a thread at 384
 //   threads whatever setmaxnreg asks, so at D = 64 and 160 the consumers
 //   spill a few hundred bytes.  The tiles use the column-block layout of
 //   hopper.cuh; TMA zero-fills rows past S and columns past D, so rows past
@@ -106,7 +118,7 @@ __global__ void cast_f32_bf16(const float* __restrict__ src, bf16* __restrict__ 
 constexpr int BB_KV = 128;  // keys a block: two consumer warpgroups of 64
 constexpr int BB_Q = 64;    // queries a stage
 
-template <int DP>
+template <int DP, bool DQ>
 struct BwdBf16 {
   static constexpr int THREADS = 384;  // one producer and two consumer warpgroups
   static constexpr int PRODUCER_REGS = 24;
@@ -121,22 +133,23 @@ struct BwdBf16 {
   static constexpr int OFF_V = KV_BYTES;
   static constexpr int OFF_RING = 2 * KV_BYTES;  // stage s: Q, dO, lse (64 f32), delta (64 f32)
   static constexpr int STAGE = 2 * Q_BYTES + 1024;
-  static constexpr int STAGES = DP > 80 ? 1 : 2;  // at D = 160 the dS^T remainders take the second
+  // At D = 160 K4's dS^T remainders take the room of the second stage.
+  static constexpr int STAGES = DQ && DP > 80 ? 1 : 2;
   static constexpr int OFF_DS = OFF_RING + STAGES * STAGE;  // two dS^T buffers, then two remainders
-  static constexpr int OFF_STG = OFF_DS + 4 * DS_BYTES;      // two staging chunks
-  static constexpr int OFF_BAR = OFF_STG + 2 * STG_BYTES;
+  static constexpr int OFF_STG = OFF_DS + (DQ ? 4 * DS_BYTES : 0);  // two staging chunks
+  static constexpr int OFF_BAR = OFF_STG + (DQ ? 2 * STG_BYTES : 0);
   static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
   static_assert(DQ_N % 16 == 0, "dQ chunks start at a column block");
 };
 
-template <int DP>
-__global__ void __launch_bounds__(BwdBf16<DP>::THREADS, 1)
-bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
-               const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
-               const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-               int sq, int sk, int d, float scale) {
-  using C = BwdBf16<DP>;
+// The sweep of one block; the tensor maps are the kernel's __grid_constant__
+// parameters, which the TMA instructions address in place.
+template <int DP, bool DQ>
+__device__ __forceinline__ void bwd_bf16_sweep(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const CUtensorMap& tg,
+    const CUtensorMap& tdq, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int d, float scale) {
+  using C = BwdBf16<DP, DQ>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   const uint32_t s0 = smem_u32(base);
@@ -233,9 +246,9 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     // or g + 8, query column 8 j + 2 t + (e & 1).
     const float* L = Ls(s);
     const float* E = L + BB_Q;
-    uint32_t pa[BB_Q / 16][4], sa[BB_Q / 16][4];
-    const int kr = cw * 64 + warp * 16 + g;  // key row in the block's dS^T tile
-    unsigned char* ds_tile = base + C::OFF_DS + (it & 1) * C::DS_BYTES;
+    uint32_t pa[BB_Q / 16][4], sa[BB_Q / 16][4], sr[BB_Q / 16][4];
+    [[maybe_unused]] const int kr = cw * 64 + warp * 16 + g;  // key row in the block's dS^T tile
+    [[maybe_unused]] unsigned char* ds_tile = base + C::OFF_DS + (it & 1) * C::DS_BYTES;
 #pragma unroll
     for (int j = 0; j < BB_Q / 8; ++j) {
       const int col = j * 8 + 2 * t;
@@ -251,77 +264,90 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
       pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
       const uint32_t s01 = pack_bf16(d0, d1), s23 = pack_bf16(d2, d3);
+      const uint32_t r01 = pack_bf16_rest(d0, d1, s01), r23 = pack_bf16_rest(d2, d3, s23);
       sa[j / 2][(j % 2) * 2] = s01;
       sa[j / 2][(j % 2) * 2 + 1] = s23;
-      // dS^T (keys x queries) into its column-block tile of 128 rows
-      *reinterpret_cast<uint32_t*>(ds_tile + cb_offset(kr, col, BB_KV)) = s01;
-      *reinterpret_cast<uint32_t*>(ds_tile + cb_offset(kr + 8, col, BB_KV)) = s23;
-      unsigned char* rest = ds_tile + 2 * C::DS_BYTES;  // what the bf16 rounding left
-      *reinterpret_cast<uint32_t*>(rest + cb_offset(kr, col, BB_KV)) = pack_bf16_rest(d0, d1, s01);
-      *reinterpret_cast<uint32_t*>(rest + cb_offset(kr + 8, col, BB_KV)) = pack_bf16_rest(d2, d3, s23);
+      sr[j / 2][(j % 2) * 2] = r01;
+      sr[j / 2][(j % 2) * 2 + 1] = r23;
+      if constexpr (DQ) {
+        // dS^T (keys x queries) into its column-block tile of 128 rows
+        *reinterpret_cast<uint32_t*>(ds_tile + cb_offset(kr, col, BB_KV)) = s01;
+        *reinterpret_cast<uint32_t*>(ds_tile + cb_offset(kr + 8, col, BB_KV)) = s23;
+        unsigned char* rest = ds_tile + 2 * C::DS_BYTES;  // what the bf16 rounding left
+        *reinterpret_cast<uint32_t*>(rest + cb_offset(kr, col, BB_KV)) = r01;
+        *reinterpret_cast<uint32_t*>(rest + cb_offset(kr + 8, col, BB_KV)) = r23;
+      }
     }
     wgmma_fence();
 #pragma unroll
     for (int kq = 0; kq < BB_Q / 16; ++kq)
       WgmmaRS<DP, 1>::run(dva, pa[kq], desc_mnmajor(sG(s) + kq * 16 * 32, BB_Q), 1);
+    // dK takes dS^T as its bf16 remainder, then its bf16 high part.
+#pragma unroll
+    for (int kq = 0; kq < BB_Q / 16; ++kq)
+      WgmmaRS<DP, 1>::run(dka, sr[kq], desc_mnmajor(sQ(s) + kq * 16 * 32, BB_Q), 1);
 #pragma unroll
     for (int kq = 0; kq < BB_Q / 16; ++kq)
       WgmmaRS<DP, 1>::run(dka, sa[kq], desc_mnmajor(sQ(s) + kq * 16 * 32, BB_Q), 1);
     wgmma_commit();
-    fence_proxy_async();         // dS^T stores visible to wgmma
-    named_bar_sync(1, 256);      // both warpgroups' dS^T in place
-
-    if (cw == (it & 1)) {
-      // dQ_tile (64 queries x DP) = dS K over the block's 128 keys, by one
-      // warpgroup on alternate tiles (the other goes on to the next tile),
-      // in column chunks, each added into dQ by one bulk reduce-add.
-      const uint32_t sDS = smem_u32(ds_tile);
-      const uint32_t sStg = s0 + C::OFF_STG + cw * C::STG_BYTES;
-      float* stg = reinterpret_cast<float*>(base + C::OFF_STG + cw * C::STG_BYTES);
-      const bool leader = threadIdx.x == 128 * wg;
-#pragma unroll
-      for (int ch = 0; ch < C::DQ_CH; ++ch) {
-        float dqa[C::DQ_N / 2];
-#pragma unroll
-        for (int i = 0; i < C::DQ_N / 2; ++i) dqa[i] = 0.f;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BB_KV / 16; ++kk) {
-          const uint64_t kd =
-              desc_mnmajor(sK + (ch * C::DQ_N / 16) * BB_KV * 32 + kk * 16 * 32, BB_KV);
-          WgmmaSS<C::DQ_N, 1, 1>::run(dqa, desc_mnmajor(sDS + kk * 16 * 32, BB_KV), kd, 1);
-          WgmmaSS<C::DQ_N, 1, 1>::run(
-              dqa, desc_mnmajor(sDS + 2 * C::DS_BYTES + kk * 16 * 32, BB_KV), kd, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();  // also completes dV and dK of this tile
-        fence_regs(dqa);
-        if (leader) bulk_wait_read();  // the last reduce-add has read the staging chunk
-        named_bar_sync(2 + cw, 128);
-        const int ra = warp * 16 + g;
-#pragma unroll
-        for (int j = 0; j < C::DQ_N / 8; ++j) {
-          *reinterpret_cast<float2*>(stg + ra * C::DQ_N + j * 8 + 2 * t) =
-              make_float2(dqa[4 * j], dqa[4 * j + 1]);
-          *reinterpret_cast<float2*>(stg + (ra + 8) * C::DQ_N + j * 8 + 2 * t) =
-              make_float2(dqa[4 * j + 2], dqa[4 * j + 3]);
-        }
-        fence_proxy_async();
-        named_bar_sync(2 + cw, 128);
-        if (leader) {
-          tma_reduce_add_3d(&tdq, sStg, ch * C::DQ_N, q0, bh);
-          bulk_commit();
-        }
-      }
-    } else {
+    if constexpr (!DQ) {
       wgmma_wait<0>();  // dV and dK of this tile have read Q and dO
+    } else {
+      fence_proxy_async();         // dS^T stores visible to wgmma
+      named_bar_sync(1, 256);      // both warpgroups' dS^T in place
+
+      if (cw == (it & 1)) {
+        // dQ_tile (64 queries x DP) = dS K over the block's 128 keys, by one
+        // warpgroup on alternate tiles (the other goes on to the next tile),
+        // in column chunks, each added into dQ by one bulk reduce-add.
+        const uint32_t sDS = smem_u32(ds_tile);
+        const uint32_t sStg = s0 + C::OFF_STG + cw * C::STG_BYTES;
+        float* stg = reinterpret_cast<float*>(base + C::OFF_STG + cw * C::STG_BYTES);
+        const bool leader = threadIdx.x == 128 * wg;
+#pragma unroll
+        for (int ch = 0; ch < C::DQ_CH; ++ch) {
+          float dqa[C::DQ_N / 2];
+#pragma unroll
+          for (int i = 0; i < C::DQ_N / 2; ++i) dqa[i] = 0.f;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BB_KV / 16; ++kk) {
+            const uint64_t kd =
+                desc_mnmajor(sK + (ch * C::DQ_N / 16) * BB_KV * 32 + kk * 16 * 32, BB_KV);
+            WgmmaSS<C::DQ_N, 1, 1>::run(dqa, desc_mnmajor(sDS + kk * 16 * 32, BB_KV), kd, 1);
+            WgmmaSS<C::DQ_N, 1, 1>::run(
+                dqa, desc_mnmajor(sDS + 2 * C::DS_BYTES + kk * 16 * 32, BB_KV), kd, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();  // also completes dV and dK of this tile
+          fence_regs(dqa);
+          if (leader) bulk_wait_read();  // the last reduce-add has read the staging chunk
+          named_bar_sync(2 + cw, 128);
+          const int ra = warp * 16 + g;
+#pragma unroll
+          for (int j = 0; j < C::DQ_N / 8; ++j) {
+            *reinterpret_cast<float2*>(stg + ra * C::DQ_N + j * 8 + 2 * t) =
+                make_float2(dqa[4 * j], dqa[4 * j + 1]);
+            *reinterpret_cast<float2*>(stg + (ra + 8) * C::DQ_N + j * 8 + 2 * t) =
+                make_float2(dqa[4 * j + 2], dqa[4 * j + 3]);
+          }
+          fence_proxy_async();
+          named_bar_sync(2 + cw, 128);
+          if (leader) {
+            tma_reduce_add_3d(&tdq, sStg, ch * C::DQ_N, q0, bh);
+            bulk_commit();
+          }
+        }
+      } else {
+        wgmma_wait<0>();  // dV and dK of this tile have read Q and dO
+      }
     }
     fence_regs(dka);
     fence_regs(dva);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));  // Q, dO, lse and delta of this stage consumed
   }
-  if (threadIdx.x == 128 * wg) bulk_wait();
+  if (DQ && threadIdx.x == 128 * wg) bulk_wait();
 
   const int ra = k0 + cw * 64 + warp * 16 + g, rb = ra + 8;
   bf16* dkb = dk + size_t(bh) * sk * d;
@@ -344,29 +370,48 @@ bwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 }
 
-template <int DP>
+// K4's kernel and K6's (the sweep without dQ), under names of their own so
+// that build logs and traces tell them apart.
+#define SIDLSG_BWD_BF16_KERNEL(NAME, DQ)                                                          \
+  template <int DP>                                                                               \
+  __global__ void __launch_bounds__(BwdBf16<DP, DQ>::THREADS, 1)                                 \
+  NAME(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,            \
+       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,            \
+       const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,                    \
+       const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,     \
+       int sk, int d, float scale) {                                                              \
+    bwd_bf16_sweep<DP, DQ>(tq, tk, tv, tg, tdq, lse, delta, dk, dv, sq, sk, d, scale);            \
+  }
+SIDLSG_BWD_BF16_KERNEL(bwd_bf16_wgmma, true)
+SIDLSG_BWD_BF16_KERNEL(bwd_dkv_bf16_wgmma, false)
+#undef SIDLSG_BWD_BF16_KERNEL
+
+// DQ false (K6): dq_acc is unused and may be null.
+template <int DP, bool DQ>
 cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
                             int bh, int sq, int sk, int d, float scale, cudaStream_t st) {
-  CUtensorMap tq, tk, tv, tg, tdq;
+  using C = BwdBf16<DP, DQ>;
+  CUtensorMap tq, tk, tv, tg, tdq{};
   cudaError_t err = tensor_map_bf16(&tq, q, bh, sq, d, BB_Q);
-  if (err == cudaSuccess) err = tensor_map_f32(&tdq, dq_acc, bh, sq, d, BwdBf16<DP>::DQ_N, BB_Q);
+  if (DQ && err == cudaSuccess) err = tensor_map_f32(&tdq, dq_acc, bh, sq, d, C::DQ_N, BB_Q);
   if (err == cudaSuccess) err = tensor_map_bf16(&tg, dout, bh, sq, d, BB_Q);
   if (err == cudaSuccess) err = tensor_map_bf16(&tk, k, bh, sk, d, BB_KV);
   if (err == cudaSuccess) err = tensor_map_bf16(&tv, v, bh, sk, d, BB_KV);
+  const auto kernel = DQ ? bwd_bf16_wgmma<DP> : bwd_dkv_bf16_wgmma<DP>;
   // Once per instantiation: the register check and the shared-memory limit.
-  static const cudaError_t prepared = [] {
-    const cudaError_t e = check_ws_regs(reinterpret_cast<const void*>(bwd_bf16_wgmma<DP>), 2,
-                                        BwdBf16<DP>::PRODUCER_REGS, BwdBf16<DP>::CONSUMER_REGS);
+  static const cudaError_t prepared = [kernel] {
+    const cudaError_t e = check_ws_regs(reinterpret_cast<const void*>(kernel), 2,
+                                        C::PRODUCER_REGS, C::CONSUMER_REGS);
     return e != cudaSuccess ? e
-                            : cudaFuncSetAttribute(bwd_bf16_wgmma<DP>,
+                            : cudaFuncSetAttribute(kernel,
                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   BwdBf16<DP>::SMEM);
+                                                   C::SMEM);
   }();
   if (err == cudaSuccess) err = prepared;
   if (err != cudaSuccess) return err;
   const dim3 grid((sk + BB_KV - 1) / BB_KV, bh);
-  bwd_bf16_wgmma<DP><<<grid, BwdBf16<DP>::THREADS, BwdBf16<DP>::SMEM, st>>>(
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(
       tq, tk, tv, tg, tdq, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, d,
       scale);
   return cudaGetLastError();
@@ -388,13 +433,12 @@ struct BwdF32 {
                        2 * BF_Q);
 };
 
-template <int DP>
-__global__ void __launch_bounds__(BF_THREADS, 1)
-bwd_f32_tf32x3(const __grid_constant__ CUtensorMap tdq, const float* __restrict__ q,
-               const float* __restrict__ k, const float* __restrict__ v,
-               const float* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-               int sq, int sk, int d, float scale) {
+template <int DP, bool DQ>
+__device__ __forceinline__ void bwd_f32_sweep(
+    const CUtensorMap& tdq, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+    int d, float scale) {
   using C = BwdF32<DP>;
   constexpr int LD = C::LD, LT = C::LT, DQC = C::DQC;
   constexpr int NTW = DP / 64;  // n8 tiles of dK / dV a warp, in each of its two 16-key halves
@@ -443,7 +487,7 @@ bwd_f32_tf32x3(const __grid_constant__ CUtensorMap tdq, const float* __restrict_
       Ls[threadIdx.x] = row < sq ? lse[size_t(bh) * sq + row] * kLog2e : kFarLse;
       Es[threadIdx.x] = row < sq ? delta[size_t(bh) * sq + row] : 0.f;
     }
-    if (threadIdx.x == 0) bulk_wait_read();  // RED is free of the last dQ chunk
+    if (DQ && threadIdx.x == 0) bulk_wait_read();  // RED is free of the last dQ chunk
     cp_async_wait_group<0>();
     __syncthreads();
 
@@ -540,7 +584,7 @@ bwd_f32_tf32x3(const __grid_constant__ CUtensorMap tdq, const float* __restrict_
     // dQ_tile = dS K (16 queries x DP, over the 32 keys) in column chunks
     // of DQC, each staged in RED as (16, DQC) and added into dQ by one TMA
     // bulk reduce-add.
-    {
+    if constexpr (DQ) {
       Tf32Frag a[BF_KV / 8];
 #pragma unroll
       for (int kk = 0; kk < BF_KV / 8; ++kk) {
@@ -573,7 +617,7 @@ bwd_f32_tf32x3(const __grid_constant__ CUtensorMap tdq, const float* __restrict_
       }
     }
   }
-  if (threadIdx.x == 0) bulk_wait();
+  if (DQ && threadIdx.x == 0) bulk_wait();
 
   float* dkb = dk + size_t(bh) * sk * d;
   float* dvb = dv + size_t(bh) * sk * d;
@@ -601,23 +645,105 @@ bwd_f32_tf32x3(const __grid_constant__ CUtensorMap tdq, const float* __restrict_
   }
 }
 
-template <int DP>
+// K4's kernel and K6's, as in the bf16 path.
+#define SIDLSG_BWD_F32_KERNEL(NAME, DQ)                                                           \
+  template <int DP>                                                                               \
+  __global__ void __launch_bounds__(BF_THREADS, 1)                                               \
+  NAME(const __grid_constant__ CUtensorMap tdq, const float* __restrict__ q,                      \
+       const float* __restrict__ k, const float* __restrict__ v, const float* __restrict__ dout,  \
+       const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,    \
+       float* __restrict__ dv, int sq, int sk, int d, float scale) {                              \
+    bwd_f32_sweep<DP, DQ>(tdq, q, k, v, dout, lse, delta, dk, dv, sq, sk, d, scale);              \
+  }
+SIDLSG_BWD_F32_KERNEL(bwd_f32_tf32x3, true)
+SIDLSG_BWD_F32_KERNEL(bwd_dkv_f32_tf32x3, false)
+#undef SIDLSG_BWD_F32_KERNEL
+
+// DQ false (K6): dq_acc is unused and may be null.
+template <int DP, bool DQ>
 cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
                            int bh, int sq, int sk, int d, float scale, cudaStream_t st) {
   const size_t smem = BwdF32<DP>::SMEM;
-  CUtensorMap tdq;
-  cudaError_t err = tensor_map_f32(&tdq, dq_acc, bh, sq, d, BwdF32<DP>::DQC, BF_Q);
-  static const cudaError_t prepared = cudaFuncSetAttribute(
-      bwd_f32_tf32x3<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  CUtensorMap tdq{};
+  cudaError_t err = DQ ? tensor_map_f32(&tdq, dq_acc, bh, sq, d, BwdF32<DP>::DQC, BF_Q) : cudaSuccess;
+  const auto kernel = DQ ? bwd_f32_tf32x3<DP> : bwd_dkv_f32_tf32x3<DP>;
+  static const cudaError_t prepared =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err == cudaSuccess) err = prepared;
   if (err != cudaSuccess) return err;
   const dim3 grid((sk + BF_KV - 1) / BF_KV, bh);
-  bwd_f32_tf32x3<DP><<<grid, BF_THREADS, smem, st>>>(
+  kernel<<<grid, BF_THREADS, smem, st>>>(
       tdq, static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
       static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, scale);
   return cudaGetLastError();
+}
+
+template <bool DQ>
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
+                          int bh, int sq, int sk, int d, float scale, cudaStream_t st) {
+#define SIDLSG_BWD_BF16(DP) \
+  if (d <= DP)              \
+    return launch_bwd_bf16<DP, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, st);
+  SIDLSG_BWD_BF16(16)
+  SIDLSG_BWD_BF16(32)
+  SIDLSG_BWD_BF16(48)
+  SIDLSG_BWD_BF16(64)
+  SIDLSG_BWD_BF16(80)
+  SIDLSG_BWD_BF16(160)
+#undef SIDLSG_BWD_BF16
+  return cudaErrorInvalidValue;
+}
+
+template <bool DQ>
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
+                         int bh, int sq, int sk, int d, float scale, cudaStream_t st) {
+#define SIDLSG_BWD_F32(DP) \
+  if (d <= DP)             \
+    return launch_bwd_f32<DP, DQ>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, sq, sk, d, scale, st);
+  SIDLSG_BWD_F32(64)
+  SIDLSG_BWD_F32(192)
+  SIDLSG_BWD_F32(320)
+  SIDLSG_BWD_F32(512)
+#undef SIDLSG_BWD_F32
+  return cudaErrorInvalidValue;
+}
+
+// What both entries require: shapes the kernels take, d a whole 16-byte
+// row (the wrapper pads other head dims with zero columns), bh within the
+// grid's y limit, and 16-byte aligned tensors.
+bool inputs_ok(const void* q, const void* k, const void* v, const void* dout, const void* dk,
+               const void* dv, int bh, int sq, int sk, int d, int dtype) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  return shape_ok(bh, sq, sk, d, dtype) && bh <= 65535 && d % (dtype == 1 ? 8 : 4) == 0 &&
+         addr % 16 == 0;
+}
+
+template <bool DQ>
+int bwd_smem(int dtype, int d) {
+  if (dtype == 1 && d % 8 == 0) {
+#define SIDLSG_SMEM_BF16(DP) \
+  if (d <= DP) return BwdBf16<DP, DQ>::SMEM;
+    SIDLSG_SMEM_BF16(16)
+    SIDLSG_SMEM_BF16(32)
+    SIDLSG_SMEM_BF16(48)
+    SIDLSG_SMEM_BF16(64)
+    SIDLSG_SMEM_BF16(80)
+    SIDLSG_SMEM_BF16(160)
+#undef SIDLSG_SMEM_BF16
+  }
+  if (dtype == 0 && d % 4 == 0) {
+    if (d <= 64) return int(BwdF32<64>::SMEM);
+    if (d <= 192) return int(BwdF32<192>::SMEM);
+    if (d <= 320) return int(BwdF32<320>::SMEM);
+    if (d <= 512) return int(BwdF32<512>::SMEM);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -636,14 +762,9 @@ int sidlsg_flash_attn_bwd(const void* q, const void* k, const void* v, const voi
                           void* dk, void* dv, int bh, int sq, int sk, int d, float scale,
                           int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(bh, sq, sk, d, dtype) || bh > 65535 || (dtype == 0 && dq_acc != dq) ||
-      d % (dtype == 1 ? 8 : 4) != 0)
+  if (!inputs_ok(q, k, v, dout, dk, dv, bh, sq, sk, d, dtype) || (dtype == 0 && dq_acc != dq) ||
+      reinterpret_cast<uintptr_t>(dq_acc) % 16 != 0)
     return cudaErrorInvalidValue;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-                         reinterpret_cast<uintptr_t>(dq_acc) | reinterpret_cast<uintptr_t>(dk) |
-                         reinterpret_cast<uintptr_t>(dv);
-  if (addr % 16 != 0) return cudaErrorInvalidValue;
   const long long rows = (long long)bh * sq;
   float* acc = static_cast<float*>(dq_acc);
   float* dl = static_cast<float*>(delta);
@@ -653,51 +774,38 @@ int sidlsg_flash_attn_bwd(const void* q, const void* k, const void* v, const voi
   err = run_delta(out, dout, dl, rows, d, dtype, st);
   if (err != cudaSuccess) return err;
   if (dtype == 1) {
-#define SIDLSG_BWD_BF16(DP) \
-  else if (d <= DP) err = launch_bwd_bf16<DP>(q, k, v, dout, lf, dl, acc, dk, dv, bh, sq, sk, d, scale, st);
-    if (false) {
-    }
-    SIDLSG_BWD_BF16(16)
-    SIDLSG_BWD_BF16(32)
-    SIDLSG_BWD_BF16(48)
-    SIDLSG_BWD_BF16(64)
-    SIDLSG_BWD_BF16(80)
-    SIDLSG_BWD_BF16(160)
-#undef SIDLSG_BWD_BF16
+    err = dispatch_bf16<true>(q, k, v, dout, lf, dl, acc, dk, dv, bh, sq, sk, d, scale, st);
     if (err != cudaSuccess) return err;
     const long long n = rows * d;
     const unsigned blocks = unsigned((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
     cast_f32_bf16<<<blocks, 256, 0, st>>>(acc, static_cast<bf16*>(dq), n);
     return cudaGetLastError();
   }
-#define SIDLSG_BWD_F32(DP) \
-  if (d <= DP) return launch_bwd_f32<DP>(q, k, v, dout, lf, dl, acc, dk, dv, bh, sq, sk, d, scale, st);
-  SIDLSG_BWD_F32(64)
-  SIDLSG_BWD_F32(192)
-  SIDLSG_BWD_F32(320)
-  SIDLSG_BWD_F32(512)
-#undef SIDLSG_BWD_F32
-  return cudaErrorInvalidValue;
+  return dispatch_f32<true>(q, k, v, dout, lf, dl, acc, dk, dv, bh, sq, sk, d, scale, st);
 }
 
-// Dynamic shared memory a launch of sidlsg_flash_attn_bwd's main kernel
-// takes at this dtype and head dim (-1 where it does not launch).
-int sidlsg_flash_attn_bwd_smem(int dtype, int d) {
-  if (dtype == 1 && d % 8 == 0) {
-    if (d <= 16) return BwdBf16<16>::SMEM;
-    if (d <= 32) return BwdBf16<32>::SMEM;
-    if (d <= 48) return BwdBf16<48>::SMEM;
-    if (d <= 64) return BwdBf16<64>::SMEM;
-    if (d <= 80) return BwdBf16<80>::SMEM;
-    if (d <= 160) return BwdBf16<160>::SMEM;
-  }
-  if (dtype == 0 && d % 4 == 0) {
-    if (d <= 64) return int(BwdF32<64>::SMEM);
-    if (d <= 192) return int(BwdF32<192>::SMEM);
-    if (d <= 320) return int(BwdF32<320>::SMEM);
-    if (d <= 512) return int(BwdF32<512>::SMEM);
-  }
-  return -1;
+// K6: dK and dV by the sweep above without its dQ section.  Shapes, dtypes
+// and alignment as sidlsg_flash_attn_bwd; delta: (bh, sq) f32 scratch.
+int sidlsg_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* out,
+                              const void* dout, const void* lse, void* delta, void* dk, void* dv,
+                              int bh, int sq, int sk, int d, float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!inputs_ok(q, k, v, dout, dk, dv, bh, sq, sk, d, dtype)) return cudaErrorInvalidValue;
+  float* dl = static_cast<float*>(delta);
+  cudaError_t err = run_delta(out, dout, dl, (long long)bh * sq, d, dtype, st);
+  if (err != cudaSuccess) return err;
+  const float* lf = static_cast<const float*>(lse);
+  return dtype == 1
+             ? dispatch_bf16<false>(q, k, v, dout, lf, dl, nullptr, dk, dv, bh, sq, sk, d, scale, st)
+             : dispatch_f32<false>(q, k, v, dout, lf, dl, nullptr, dk, dv, bh, sq, sk, d, scale, st);
 }
+
+// Dynamic shared memory a launch of the main kernel of
+// sidlsg_flash_attn_bwd (K4) takes at this dtype and head dim (-1 where it
+// does not launch).
+int sidlsg_flash_attn_bwd_smem(int dtype, int d) { return bwd_smem<true>(dtype, d); }
+
+// The same for sidlsg_flash_attn_bwd_dkv (K6).
+int sidlsg_flash_attn_bwd_dkv_smem(int dtype, int d) { return bwd_smem<false>(dtype, d); }
 
 }  // extern "C"

@@ -1,42 +1,35 @@
-// Flash-attention backward kernels K5 and K6 for Hopper (sm_90a)
-// (flash_attn_bwd_twopass.cu), and the delta pre-pass and shape check that
-// K4 (flash_attn_bwd.cu) shares with them.  K5 and K6 keep the mma.sync
-// design below; they are off the training path and serve as an independent
-// check on K4, whose kernels are in flash_attn_bwd.cu.
+// Flash-attention backward kernel K5 (dQ of the two-pass backward) for
+// Hopper (sm_90a), called from flash_attn_bwd_twopass.cu, and the delta
+// pre-pass and shape check that K4 and K6 (flash_attn_bwd.cu) share with it.
+// K5 keeps the mma.sync design below; K6 is K4's sweep without dQ.
 //
-// Every kernel here recomputes the probabilities from the forward's row
+// Every kernel recomputes the probabilities from the forward's row
 // logsumexp, P = exp(S * scale - lse), with S = Q K^T, and uses
 // delta = rowsum(dO * O) (the pre-pass below):
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta) * scale,
 //   dK = dS^T Q,  dQ = dS K.
 // Nothing of size S_q x S_k reaches device memory.  Ragged tails (S_k = 77,
-// S_q not a multiple of the tile) are masked in the kernels: rows past the
+// S_q not a multiple of the tile) are masked in the kernel: rows past the
 // end load as zeros and their probabilities are set to 0.
 //
-// What bounds them on the H100: K5's three products and K6's four are
-// 6 and 8 S_q S_k D operations per (batch, head) against a few S D bytes,
-// so the tensor cores bound them at the UNet's self-attention; at
-// cross-attention (S_k = 77) the bytes of Q, dO and dQ do.
+// What bounds K5 on the H100: its three products are 6 S_q S_k D operations
+// per (batch, head) against a few S D bytes, so the tensor cores bound it at
+// the UNet's self-attention; at cross-attention (S_k = 77) the bytes of Q,
+// dO and dQ do.
 //
-// Design (bf16, mma.sync m16n8k16, f32 accumulate):
-// - kv kernel (K6): one block of 4 warps per (bh, 64-key tile); each warp
-//   owns 16 keys.  The block walks the q-tiles in a loop, Q/dO tiles
-//   double-buffered by 16-byte cp.async.  S^T and dP^T are computed
-//   key-major, so P^T and dS^T sit in registers in the C-fragment layout
-//   that is also the A operand of dV += P^T dO and dK += dS^T Q; dV and dK
-//   accumulate in registers for the whole sweep.
-// - dq kernel (K5): one block of 4 warps per (bh, 64-query tile), looping
-//   over the k-tiles; dQ stays in registers, written once, no atomics, so
-//   K5 + K6 are deterministic.  dS enters dQ += dS K as its bf16 high part
-//   and the bf16 remainder (two products, 8 S_q S_k D operations in all),
-//   since a row of few keys (77 at cross-attention) carries the rounding
-//   of its largest dS elements into dQ.
+// Design (bf16, mma.sync m16n8k16, f32 accumulate): one block of 4 warps per
+// (bh, 64-query tile), looping over the k-tiles, K/V tiles double-buffered
+// by 16-byte cp.async; dQ stays in registers, written once, no atomics, so
+// K5 + K6 are deterministic.  dS enters dQ += dS K as its bf16 high part and
+// the bf16 remainder (two products, 8 S_q S_k D operations in all), since a
+// row of few keys (77 at cross-attention) carries the rounding of its
+// largest dS elements into dQ.
 // f32 (the VAE's and the DINO ViT's attention, the tiny check and --bf16 0;
-// D <= 512): CUDA cores, 32-key x 32-query tiles and 128 threads per block
-// up to D = 160, 16 x 16 tiles and 256 threads above, so that the four
-// (tile x D) f32 tiles fit the 227 KB of shared memory at D = 512 (133 KB
-// there); P and dS of a tile pair go through shared memory, dK and dV stay
-// in registers (at D = 512, 64 floats per thread).
+// D <= 512): CUDA cores, 32 x 32 tiles and 128 threads per block up to
+// D = 160, 16 x 16 tiles and 256 threads above, so that the four (tile x D)
+// f32 tiles fit the 227 KB of shared memory at D = 512 (133 KB there); dS of
+// a tile pair goes through shared memory, dQ stays in registers (at D = 512,
+// 32 floats per thread).
 
 #pragma once
 
@@ -49,7 +42,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;
-constexpr int kTile = 64;    // bf16: keys per kv block, queries per dq block
+constexpr int kTile = 64;    // bf16: queries a block, keys a tile
 constexpr int kTileF = 32;   // f32: keys and queries per tile
 
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -152,27 +145,6 @@ __device__ void load_rows(bf16* dst, const bf16* src, int row0, int rows_total, 
   }
 }
 
-// ROWS per-row f32 values (lse or delta) starting at row0, 0 past the end.
-template <int ROWS>
-__device__ void load_vec(float* dst, const float* src, int row0, int rows_total) {
-  for (int i = threadIdx.x; i < ROWS; i += blockDim.x)
-    dst[i] = row0 + i < rows_total ? src[row0 + i] : 0.f;
-}
-
-// q-tile height of the kv kernel: smaller for the widest head so that the
-// dK/dV accumulators and the score fragments fit the registers.
-template <int DP>
-struct KvTile {
-  static constexpr int BQ = DP > 80 ? 32 : 64;
-};
-
-template <int DP>
-size_t kv_smem_bytes() {
-  constexpr int LD = DP + 8;
-  constexpr int BQ = KvTile<DP>::BQ;
-  return (size_t(2) * kTile + 4 * BQ) * LD * sizeof(bf16) + 4 * BQ * sizeof(float);
-}
-
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): A registers
 // hold rows g and g+8 at columns 2t, 2t+1 (+8); B registers hold k rows 2t,
 // 2t+1 (+8) of column g; C holds rows g (c0, c1) and g+8 (c2, c3) at
@@ -194,168 +166,6 @@ __device__ __forceinline__ void c_to_a_rest(uint32_t (&r)[4], const uint32_t (&a
     const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[i]));
     r[i] = pack_f(c[2 * i] - h.x, c[2 * i + 1] - h.y);
   }
-}
-
-// K6.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-bwd_kv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const bf16* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, bf16* __restrict__ dk,
-            bf16* __restrict__ dv, int sq, int sk, int d, float scale, int vec) {
-  constexpr int LD = DP + 8;
-  constexpr int NT = DP / 8;   // n8 tiles over the head dim
-  constexpr int KS = DP / 16;  // k16 steps over the head dim
-  constexpr int BQ = KvTile<DP>::BQ;
-  constexpr int QT = BQ / 8;   // n8 tiles over the q-tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Qs = Vs + kTile * LD;   // two buffers
-  bf16* Gs = Qs + 2 * BQ * LD;  // dO, two buffers
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // lse, two buffers
-  float* Es = Ls + 2 * BQ;                                  // delta, two buffers
-
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int kw = warp * 16;
-  const bf16* qb = q + size_t(bh) * sq * d;
-  const bf16* gb = dout + size_t(bh) * sq * d;
-  const float* lb = lse + size_t(bh) * sq;
-  const float* eb = delta + size_t(bh) * sq;
-
-  load_rows<DP, kTile>(Ks, k + size_t(bh) * sk * d, k0, sk, d, vec);
-  load_rows<DP, kTile>(Vs, v + size_t(bh) * sk * d, k0, sk, d, vec);
-  load_rows<DP, BQ>(Qs, qb, 0, sq, d, vec);
-  load_rows<DP, BQ>(Gs, gb, 0, sq, d, vec);
-  load_vec<BQ>(Ls, lb, 0, sq);
-  load_vec<BQ>(Es, eb, 0, sq);
-  cp_async_commit();
-
-  float dka[NT][4], dva[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  const bool key_a = k0 + kw + g < sk, key_b = k0 + kw + g + 8 < sk;
-
-  const int ntiles = (sq + BQ - 1) / BQ;
-  for (int it = 0; it < ntiles; ++it) {
-    const int q0 = it * BQ;
-    const int buf = it & 1;
-    if (it + 1 < ntiles) {  // the other buffer was released by the barrier ending it - 1
-      const int nb = buf ^ 1;
-      load_rows<DP, BQ>(Qs + nb * BQ * LD, qb, q0 + BQ, sq, d, vec);
-      load_rows<DP, BQ>(Gs + nb * BQ * LD, gb, q0 + BQ, sq, d, vec);
-      load_vec<BQ>(Ls + nb * BQ, lb, q0 + BQ, sq);
-      load_vec<BQ>(Es + nb * BQ, eb, q0 + BQ, sq);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the tile just started has landed
-    __syncthreads();
-    const bf16* Qt = Qs + buf * BQ * LD;
-    const bf16* Gt = Gs + buf * BQ * LD;
-    const float* Lt = Ls + buf * BQ;
-    const float* Et = Es + buf * BQ;
-
-    // S^T = K_w Q^T and dP^T = V_w dO^T, 16 keys x BQ queries per warp.
-    float st[QT][4], dp[QT][4];
-#pragma unroll
-    for (int j = 0; j < QT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const bf16* ka = Ks + (kw + g) * LD + kk * 16 + 2 * t;
-      const bf16* va = Vs + (kw + g) * LD + kk * 16 + 2 * t;
-      const uint32_t ak[4] = {ld32(ka), ld32(ka + 8 * LD), ld32(ka + 8), ld32(ka + 8 * LD + 8)};
-      const uint32_t av[4] = {ld32(va), ld32(va + 8 * LD), ld32(va + 8), ld32(va + 8 * LD + 8)};
-#pragma unroll
-      for (int j = 0; j < QT; ++j) {
-        const bf16* qr = Qt + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        const bf16* gr = Gt + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        mma16816(st[j], ak, ld32(qr), ld32(qr + 8));
-        mma16816(dp[j], av, ld32(gr), ld32(gr + 8));
-      }
-    }
-
-    // P^T (masked) and dS^T = P^T * (dP^T - delta) * scale, in place in st;
-    // P^T goes to the A fragments of dV first.
-    uint32_t pa[QT / 2][4];
-#pragma unroll
-    for (int j = 0; j < QT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const bool qok = q0 + col < sq;
-        const float l = Lt[col], de = Et[col];
-        const float pa_ = (key_a && qok) ? expf(st[j][e] * scale - l) : 0.f;
-        const float pb_ = (key_b && qok) ? expf(st[j][2 + e] * scale - l) : 0.f;
-        st[j][e] = pa_;
-        st[j][2 + e] = pb_;
-        dp[j][e] = pa_ * (dp[j][e] - de) * scale;
-        dp[j][2 + e] = pb_ * (dp[j][2 + e] - de) * scale;
-      }
-    }
-#pragma unroll
-    for (int kq = 0; kq < QT / 2; ++kq) c_to_a(pa[kq], st[2 * kq], st[2 * kq + 1]);
-
-    // dV += P^T dO and dK += dS^T Q: k16 steps over the q-tile; dO and Q
-    // rows are the k index, read two rows apart for each B register.
-#pragma unroll
-    for (int kq = 0; kq < QT / 2; ++kq) {
-      uint32_t sa[4];
-      c_to_a(sa, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* gr = Gt + (kq * 16 + 2 * t) * LD + n * 8 + g;
-        const bf16* qr = Qt + (kq * 16 + 2 * t) * LD + n * 8 + g;
-        mma16816(dva[n], pa[kq], pack_h(gr[0], gr[LD]), pack_h(gr[8 * LD], gr[9 * LD]));
-        mma16816(dka[n], sa, pack_h(qr[0], qr[LD]), pack_h(qr[8 * LD], qr[9 * LD]));
-      }
-    }
-
-    __syncthreads();  // this buffer is refilled next
-  }
-
-  const int ra = k0 + kw + g, rb = ra + 8;
-  bf16* dkb = dk + size_t(bh) * sk * d;
-  bf16* dvb = dv + size_t(bh) * sk * d;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = n * 8 + 2 * t + e;
-      if (col < d) {
-        if (ra < sk) {
-          dkb[size_t(ra) * d + col] = __float2bfloat16(dka[n][e]);
-          dvb[size_t(ra) * d + col] = __float2bfloat16(dva[n][e]);
-        }
-        if (rb < sk) {
-          dkb[size_t(rb) * d + col] = __float2bfloat16(dka[n][2 + e]);
-          dvb[size_t(rb) * d + col] = __float2bfloat16(dva[n][2 + e]);
-        }
-      }
-    }
-  }
-}
-
-template <int DP>
-cudaError_t launch_kv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                           const float* lse, const float* delta, void* dk, void* dv, int bh,
-                           int sq, int sk, int d, float scale, int vec, cudaStream_t st) {
-  const size_t smem = kv_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(bwd_kv_bf16<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sk + kTile - 1) / kTile, bh);
-  bwd_kv_bf16<DP><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), sq, sk, d, scale, vec);
-  return cudaGetLastError();
 }
 
 // K5: dQ for one 64-query tile per block, looping over the k-tiles.
@@ -575,77 +385,6 @@ __device__ void load_lse_delta(const SmemF& s, const float* lse, const float* de
   }
 }
 
-// kv kernel in f32 (K6): one block per (bh, TF-key tile), looping over
-// q-tiles; thread (key = tid / TPR, c = tid % TPR + TPR j) accumulates dK
-// and dV in registers.
-template <class TL, int NJ>  // head dim d <= TPR * NJ
-__global__ void __launch_bounds__(TL::NTH)
-bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, float* __restrict__ dk,
-           float* __restrict__ dv, int sq, int sk, int d, float scale) {
-  constexpr int TF = TL::TF, TPR = TL::TPR;
-  extern __shared__ __align__(16) float fsm[];
-  const SmemF s = smem_f<TF>(fsm, d);
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * TF;
-  const int row = threadIdx.x / TPR, c0 = threadIdx.x % TPR;
-  load_rows_f<TF>(s.K, s.ld, k + size_t(bh) * sk * d, k0, sk, d);
-  load_rows_f<TF>(s.V, s.ld, v + size_t(bh) * sk * d, k0, sk, d);
-  float dka[NJ], dva[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) dka[j] = dva[j] = 0.f;
-
-  for (int q0 = 0; q0 < sq; q0 += TF) {
-    __syncthreads();  // the previous tile is consumed
-    load_rows_f<TF>(s.Q, s.ld, q + size_t(bh) * sq * d, q0, sq, d);
-    load_rows_f<TF>(s.G, s.ld, dout + size_t(bh) * sq * d, q0, sq, d);
-    load_lse_delta<TF>(s, lse, delta, size_t(bh) * sq, q0, sq);
-    __syncthreads();
-    scores_f<TL>(s, q0, k0, sq, sk, d, scale);
-    __syncthreads();
-    for (int qi = 0; qi < TF; ++qi) {
-      const float p = s.P[qi * (TF + 1) + row];
-      const float ds = s.S[qi * (TF + 1) + row];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = c0 + TPR * j;
-        if (c < d) {
-          dva[j] = fmaf(p, s.G[qi * s.ld + c], dva[j]);
-          dka[j] = fmaf(ds, s.Q[qi * s.ld + c], dka[j]);
-        }
-      }
-    }
-  }
-  const int key = k0 + row;
-  if (key < sk) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + TPR * j;
-      if (c < d) {
-        dk[(size_t(bh) * sk + key) * d + c] = dka[j];
-        dv[(size_t(bh) * sk + key) * d + c] = dva[j];
-      }
-    }
-  }
-}
-
-template <class TL, int NJ>
-cudaError_t launch_kv_f32(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
-                          int sk, int d, float scale, cudaStream_t st) {
-  const size_t smem = smem_f_bytes<TL::TF>(d);
-  cudaError_t err = cudaFuncSetAttribute(bwd_kv_f32<TL, NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sk + TL::TF - 1) / TL::TF, bh);
-  bwd_kv_f32<TL, NJ><<<grid, TL::NTH, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), sq, sk, d, scale);
-  return cudaGetLastError();
-}
-
 // dq kernel in f32 (K5): one block per (bh, TF-query tile), looping over
 // k-tiles; thread (q = tid / TPR, c = tid % TPR + TPR j) accumulates dQ.
 template <class TL, int NJ>
@@ -722,37 +461,6 @@ inline int vec_ok(int d, const void* a, const void* b, const void* c, const void
 
 constexpr int kMaxHeadDimBf16 = 160;
 constexpr int kMaxHeadDimF32 = 512;
-
-// K6: dK, dV for every dtype and head dim the kernels take;
-// cudaErrorInvalidValue otherwise.
-inline cudaError_t run_kv(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
-                          int sk, int d, float scale, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    const int vec = vec_ok(d, q, k, v, dout);
-#define SIDLSG_KV_CASE(DP) \
-  if (d <= DP)             \
-    return launch_kv_bf16<DP>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, vec, st);
-    SIDLSG_KV_CASE(16)
-    SIDLSG_KV_CASE(32)
-    SIDLSG_KV_CASE(48)
-    SIDLSG_KV_CASE(64)
-    SIDLSG_KV_CASE(80)
-    SIDLSG_KV_CASE(160)
-#undef SIDLSG_KV_CASE
-    return cudaErrorInvalidValue;
-  }
-  if (dtype == 0) {
-#define SIDLSG_KV_F32(TL, NJ) \
-  launch_kv_f32<TL, NJ>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, st)
-    if (d <= 32) return SIDLSG_KV_F32(TileF32, 8);
-    if (d <= 64) return SIDLSG_KV_F32(TileF32, 16);
-    if (d <= 160) return SIDLSG_KV_F32(TileF32, 40);
-    if (d <= kMaxHeadDimF32) return SIDLSG_KV_F32(TileF16, 32);
-#undef SIDLSG_KV_F32
-  }
-  return cudaErrorInvalidValue;
-}
 
 inline bool shape_ok(int bh, int sq, int sk, int d, int dtype) {
   return bh > 0 && sq > 0 && sk > 0 && d > 0 &&

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "sidlsg_bias_act": [_P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _I, _P],
     "sidlsg_flash_attn_fwd_smem": [_I, _I],
     "sidlsg_flash_attn_bwd_smem": [_I, _I],
+    "sidlsg_flash_attn_bwd_dkv_smem": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -169,6 +170,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def use_kernel(*tensors) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors (run
     the plain version); raise for any other device or a mix of devices."""
+    first = tensors[0]
+    if first.is_cuda:  # the common case on the card, without building device objects
+        index = first.get_device()
+        if all(t.is_cuda and t.get_device() == index for t in tensors[1:]):
+            return True
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")

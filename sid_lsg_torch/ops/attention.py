@@ -6,12 +6,15 @@ Port of ``sid_lsg_tpu/ops/attention.py``.  Layout (B, H, S, D).
   f32 softmax; the backward recomputes P from the row logsumexp).
 - ``flash_attn_fwd``: kernel K1 (``csrc/flash_attn_fwd.cu``).
 - ``flash_attn_bwd``: kernel K4 (``csrc/flash_attn_bwd.cu``), the fused
-  backward that autograd runs, as the JAX package's default does.
-- ``flash_attn_bwd_dq`` / ``flash_attn_bwd_dkv``: kernels K5 and K6
-  (``csrc/flash_attn_bwd_twopass.cu``); ``flash_attn_bwd_twopass`` runs
-  both, the deterministic two-pass backward.  The JAX package selects it
-  with ``SIDLSG_FLASH_BWD=twopass``; the port keeps it as a separate
-  function that checks K4.
+  backward: one sweep, dQ summed by bulk reduce-adds in no fixed order.
+- ``flash_attn_bwd_dq`` / ``flash_attn_bwd_dkv``: kernels K5
+  (``csrc/flash_attn_bwd_twopass.cu``) and K6 (K4's sweep without dQ, in
+  ``csrc/flash_attn_bwd.cu``); ``flash_attn_bwd_twopass`` runs both, the
+  two-pass backward, which has no atomics or reduce-adds and so gives the
+  same gradients bit for bit on every run.
+
+Autograd runs K4, or K5 + K6 when ``SIDLSG_FLASH_BWD=twopass``, read at
+each backward as the JAX package reads it (``_BWD_MODE``).
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 version on a CPU tensor.  ``attention`` goes through the custom op
@@ -24,6 +27,7 @@ package does.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -33,7 +37,7 @@ from ._build import check, dtype_code, library, use_kernel
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = {torch.bfloat16: 160, torch.float32: 512}  # K1, K4, K5, K6
-# K1 and K4 read rows by TMA (bf16) or 16-byte copies (f32): a row of the
+# K1, K4 and K6 read rows by TMA (bf16) or 16-byte copies (f32): a row of the
 # head dim they are given is a multiple of 16 bytes.
 HEAD_DIM_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 
@@ -86,7 +90,7 @@ def _check_qkv(what: str, q, k, v, max_d: int) -> None:
 
 
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
-    """The head dim K1 and K4 are given for head dim ``d``: ``d`` rounded up
+    """The head dim K1, K4 and K6 are given for head dim ``d``: ``d`` rounded up
     to a row of 16 bytes (the wrapper pads q, k, v, out and dout with zero
     columns, which change neither scores nor the first ``d`` columns)."""
     m = HEAD_DIM_MULTIPLE[dtype]
@@ -141,6 +145,15 @@ def _bwd_inputs(what, q, k, v, out, lse, dout):
     return tuple(t.contiguous() for t in (q, k, v, out, lse, dout))
 
 
+def _sweep_inputs(what, q, k, v, out, lse, dout):
+    """The inputs of K4 or K6, checked, contiguous and padded to the head
+    dim the kernels take; returns them and that head dim."""
+    q, k, v, out, lse, dout = _bwd_inputs(what, q, k, v, out, lse, dout)
+    d = kernel_head_dim(q.shape[3], q.dtype)
+    q, k, v, out, dout = (_kernel_operand(t, d) for t in (q, k, v, out, dout))
+    return q, k, v, out, lse, dout, d
+
+
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                    lse: torch.Tensor, dout: torch.Tensor, scale: float) -> Grads:
     """(dq, dk, dv) of ``flash_attn_fwd``: kernel K4 on a CUDA tensor (bf16
@@ -148,11 +161,10 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     on a CPU tensor."""
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)
-    q, k, v, out, lse, dout = _bwd_inputs("flash_attn_bwd", q, k, v, out, lse, dout)
-    b, h, sq, d_in = q.shape
+    d_in = q.shape[3]
+    q, k, v, out, lse, dout, d = _sweep_inputs("flash_attn_bwd", q, k, v, out, lse, dout)
+    b, h, sq, _ = q.shape
     sk = k.shape[2]
-    d = kernel_head_dim(d_in, q.dtype)
-    q, k, v, out, dout = (_kernel_operand(t, d) for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq_acc = dq if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
@@ -191,20 +203,25 @@ def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: to
 def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                        lse: torch.Tensor, dout: torch.Tensor,
                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) by kernel K6 (K4's sweep without dQ) on a CUDA tensor; those
-    of ``flash_attn_bwd_ref`` on a CPU tensor."""
+    """(dk, dv) by kernel K6 (K4's sweep without dQ; the head dim padded as
+    for K4) on a CUDA tensor; those of ``flash_attn_bwd_ref`` on a CPU
+    tensor."""
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)[1:]
-    q, k, v, out, lse, dout = _bwd_inputs("flash_attn_bwd_dkv", q, k, v, out, lse, dout)
-    b, h, sq, d = q.shape
+    d_in = q.shape[3]
+    q, k, v, out, lse, dout, d = _sweep_inputs("flash_attn_bwd_dkv", q, k, v, out, lse, dout)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = library().sidlsg_flash_attn_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq, k.shape[2], d, float(scale),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, d, float(scale),
         dtype_code(q), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attn_bwd_dkv")
-    registry.record("flash_attn_bwd_dkv", (tuple(q.shape), tuple(k.shape), str(q.dtype)))
+    registry.record("flash_attn_bwd_dkv", ((b, h, sq, d_in), (b, h, sk, d_in), str(q.dtype)))
+    if d != d_in:
+        return dk[..., :d_in], dv[..., :d_in]
     return dk, dv
 
 
@@ -219,8 +236,8 @@ def flash_attn_bwd_twopass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ou
 
 
 # The op that autograd and selective checkpointing see: K1 forward (out,
-# lse), K4 backward.  An explicit schema keeps its registration independent
-# of annotation parsing.
+# lse), K4 backward (K5 + K6 under SIDLSG_FLASH_BWD=twopass).  An explicit
+# schema keeps its registration independent of annotation parsing.
 @torch.library.custom_op("sidlsg::flash_attn", mutates_args=(),
                          schema="(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)")
 def flash_attn(q, k, v, scale):
@@ -242,7 +259,9 @@ def _flash_attn_setup(ctx, inputs, output):
 def _flash_attn_backward(ctx, dout, dlse):
     del dlse  # lse feeds nothing downstream of the op
     q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = flash_attn_bwd(q, k, v, out, lse, dout, ctx.scale)
+    twopass = os.environ.get("SIDLSG_FLASH_BWD", "fused") == "twopass"
+    bwd = flash_attn_bwd_twopass if twopass else flash_attn_bwd
+    dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.scale)
     return dq, dk, dv, None
 
 

@@ -79,6 +79,39 @@ def test_bias_act_matches_jax_ref_and_pallas(act, extra, dim):
     np.testing.assert_allclose(gb.numpy(), np.asarray(jgb), **GRAD)
 
 
+# The shapes that pick each route of K7 (csrc/bias_act.cu): the bias on the
+# last axis (inner == 1: rows of C, the bias by column) and on axis 1 of an
+# NCHW map (inner > 1: rows of H * W, one bias a row); C and H * W that are
+# no multiple of the 16-byte vector (4 f32, 8 bf16); and a sliced x.
+@pytest.mark.parametrize("shape,dim,sl", [
+    ((4, 64), 1, None),
+    ((5, 13), -1, None),
+    ((2, 8, 4, 4), 1, None),
+    ((2, 5, 3, 7), 1, None),
+    ((6, 40), 1, (slice(None), slice(3, 32))),
+    ((3, 12, 6, 5), 1, (slice(None), slice(None, None, 2))),
+], ids=["rows_c64", "rows_c13", "nchw_hw16", "nchw_hw21", "sliced_cols", "sliced_channels"])
+@pytest.mark.parametrize("act", ["linear", "swish"])
+def test_bias_act_kernel_routes_match_jax_ref_and_pallas(act, shape, dim, sl):
+    rs = np.random.RandomState(11)
+    full = (rs.standard_normal(shape) * 3).astype(np.float32)
+    x = full if sl is None else full[sl]
+    b = rs.standard_normal(x.shape[dim]).astype(np.float32)
+    jdim = dim % x.ndim
+    extra = dict(gain=1.3, clamp=5.0)
+    ref = np.asarray(jops.bias_act(x, b, dim=jdim, act=act, impl="ref", **extra))
+    with pltpu.force_tpu_interpret_mode():
+        pal = np.asarray(jops.bias_act(x, b, dim=jdim, act=act, impl="pallas", **extra))
+    xt = torch.from_numpy(full)
+    if sl is not None:
+        xt = xt[sl]
+        assert not xt.is_contiguous()
+    y = ops.bias_act_fwd(xt, torch.from_numpy(b), dim, act, **extra)
+    assert y.shape == x.shape
+    np.testing.assert_allclose(y.numpy(), ref, **FWD)
+    np.testing.assert_allclose(y.numpy(), pal, **FWD)
+
+
 def test_bias_act_without_bias_and_with_alpha_matches_jax():
     x = np.random.RandomState(3).standard_normal((5, 8)).astype(np.float32)
     for act, alpha in (("lrelu", 0.05), ("elu", None), ("linear", None)):

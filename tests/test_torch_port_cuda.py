@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 flash attention forward, K2 GroupNorm stats,
 K3 GroupNorm apply, K4 fused flash backward, K5 + K6 two-pass flash
-backward, K7 bias + activation, K8 one-launch GroupNorm(+SiLU)) against
+backward (bit for bit the same on two runs), K7 bias + activation on both
+of its routes, K8 one-launch GroupNorm(+SiLU)) against
 their plain PyTorch versions, and UNet gradients through them against the
 CPU's, on the card.
 
@@ -267,11 +268,14 @@ BWD_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("fn", ["flash_attn_bwd", "flash_attn_bwd_twopass"])
+@pytest.mark.parametrize("fn", ["flash_attn_bwd", "flash_attn_bwd_twopass", "flash_attn_bwd_dkv"])
 @pytest.mark.parametrize("dtype,b,h,sq,sk,d", BWD_SHAPES)
 def test_flash_attn_bwd_matches_plain(dev, fn, dtype, b, h, sq, sk, d):
     args, ref = bwd_case(dev, dtype, b, h, sq, sk, d)
-    names = ["flash_attn_bwd"] if fn == "flash_attn_bwd" else ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
+    names = {"flash_attn_bwd": ["flash_attn_bwd"], "flash_attn_bwd_dkv": ["flash_attn_bwd_dkv"],
+             "flash_attn_bwd_twopass": ["flash_attn_bwd_dq", "flash_attn_bwd_dkv"]}[fn]
+    if fn == "flash_attn_bwd_dkv":
+        ref = ref[1:]
     before = {n: ops.registry.counts()[n] for n in names}
     got = getattr(ops, fn)(*args, d ** -0.5)
     torch.cuda.synchronize()
@@ -282,15 +286,32 @@ def test_flash_attn_bwd_matches_plain(dev, fn, dtype, b, h, sq, sk, d):
         assert_close(gx.float() * c, rx * c, dtype)
 
 
-def test_flash_attn_bwd_twopass_is_deterministic_and_agrees_with_fused(dev):
-    args, _ = bwd_case(dev, torch.bfloat16, 2, 8, 1024, 1024, 40)
-    a = ops.flash_attn_bwd_twopass(*args, 40 ** -0.5)
-    b = ops.flash_attn_bwd_twopass(*args, 40 ** -0.5)
-    fused = ops.flash_attn_bwd(*args, 40 ** -0.5)
-    for x, y, z in zip(a, b, fused):
+# Every attention shape of the train step (SD1.5 UNet at microbatch 4: batch
+# 4 and, CFG-doubled, 8; self-attention and 77-token cross-attention; head
+# dims 40/80/160, 160 at 256 queries, where K6's two-stage Q/dO ring wraps,
+# and at 64, one tile) and the SiDA step's f32 heads (the VAE's D = 512, the
+# DINO ViT's D = 64).
+STEP_SHAPES = [(torch.bfloat16, b, 8, s, sk, d)
+               for b in (4, 8) for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
+               for sk in (s, 77)] + [(torch.float32, 4, 1, 4096, 4096, 512),
+                                     (torch.float32, 4, 6, 197, 197, 64)]
+
+
+@pytest.mark.parametrize("dtype,b,h,sq,sk,d", STEP_SHAPES)
+def test_flash_attn_bwd_twopass_is_deterministic_and_agrees_with_fused(dev, dtype, b, h, sq, sk, d):
+    """K5 + K6 give the same bits on two runs (no atomics, no reduce-adds),
+    match the plain backward, and agree with K4."""
+    args, ref = bwd_case(dev, dtype, b, h, sq, sk, d, seed=11)
+    a = ops.flash_attn_bwd_twopass(*args, d ** -0.5)
+    b_ = ops.flash_attn_bwd_twopass(*args, d ** -0.5)
+    fused = ops.flash_attn_bwd(*args, d ** -0.5)
+    torch.cuda.synchronize()
+    for x, y, z, r in zip(a, b_, fused, ref):
         assert torch.equal(x, y)
+        c = pow2_scale(r)
+        assert_close(x.float() * c, r * c, dtype)
         c = pow2_scale(x)
-        assert_close(z.float() * c, x.float() * c, torch.bfloat16)
+        assert_close(z.float() * c, x.float() * c, dtype)
 
 
 @pytest.mark.parametrize("b,sq,d", [(8, 4096, 40), (8, 1024, 80)])
@@ -342,9 +363,9 @@ def test_flash_attn_kernels_at_tile_edges(dev, dtype, b, h, sq, sk, d):
         assert_close(gx.float() * c, rx * c, dtype)
 
 
-# K4 against K5 + K6 (which share no kernel code with it) at the paths'
-# shapes: UNet self- and cross-attention at batch 4, the VAE's and the DINO
-# ViT's f32 heads.
+# K4 against K5 + K6 (K5 shares no kernel code with it; K6 is its sweep
+# without dQ) at the paths' shapes: UNet self- and cross-attention at batch
+# 4, the VAE's and the DINO ViT's f32 heads.
 @pytest.mark.parametrize("dtype,b,h,sq,sk,d", [
     (torch.bfloat16, 4, 8, 4096, 4096, 40),
     (torch.bfloat16, 4, 8, 4096, 77, 40),
@@ -373,7 +394,8 @@ def test_flash_attn_bwd_rejects_what_it_does_not_take(dev, dtype, d):
         ops.flash_attn_bwd_twopass(*args, 0.1)
 
 
-@pytest.mark.parametrize("shape,dim", [((8, 64, 5, 7), 1), ((6, 64), 1), ((3, 10, 48), -1)])
+@pytest.mark.parametrize("shape,dim", [((8, 64, 5, 7), 1), ((6, 64), 1), ((3, 10, 48), -1),
+                                       ((2, 3, 129, 131), 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", list(ops.activation_funcs))
 def test_bias_act_kernel_matches_plain(dev, act, dtype, shape, dim):
@@ -389,6 +411,32 @@ def test_bias_act_kernel_matches_plain(dev, act, dtype, shape, dim):
         assert_close(y, ops.bias_act_ref(x.float(), b.float(), dim, act, **kw), dtype)
     y = ops.bias_act_fwd(x, None, dim, act)
     assert_close(y, ops.bias_act_ref(x.float(), None, dim, act), dtype)
+
+
+# K7's two routes (the bias on the last axis: rows of C; on axis 1 of
+# (outer, C, inner): one bias a row of inner) at row lengths one below, at
+# and one above a multiple of its 16-byte vector (4 f32, 8 bf16), with x
+# and b at a 16-byte boundary and one element past it.
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("route", ["rows", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_act_kernel_routes_at_vector_edges(dev, dtype, route, delta, offset):
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    n = 8 * vec + delta
+    shape, dim = ((6, n), 1) if route == "rows" else ((3, 5, n), 1)
+    g = torch.Generator(dev).manual_seed(17)
+    numel = math.prod(shape)
+    x = (torch.randn(numel + offset, generator=g, device=dev) * 3).to(dtype)[offset:].view(shape)
+    b = torch.randn(shape[dim] + offset, generator=g, device=dev).to(dtype)[offset:]
+    assert x.data_ptr() % 16 == offset * x.element_size()
+    for act in ("linear", "lrelu", "swish"):
+        before = ops.registry.counts()["bias_act"]
+        y = ops.bias_act_fwd(x, b, dim, act, gain=1.3, clamp=5.0)
+        torch.cuda.synchronize()
+        assert ops.registry.counts()["bias_act"] == before + 1
+        assert y.dtype == dtype and y.shape == x.shape and y.data_ptr() % 16 == x.data_ptr() % 16
+        assert_close(y, ops.bias_act_ref(x.float(), b.float(), dim, act, gain=1.3, clamp=5.0), dtype)
 
 
 def test_unet_gradients_on_the_card_match_the_cpu(dev):

@@ -4,7 +4,8 @@
   K4, K5 and K6 are held to on the card) and autograd through
   ``ops.attention`` (the custom op ``sidlsg::flash_attn``) against
   ``jax.grad`` through the Pallas kernels in interpret mode, in both of the
-  JAX package's backward modes, with ragged tails.
+  JAX package's backward modes, with ragged tails; ``SIDLSG_FLASH_BWD``
+  picks the port's backward as it picks the JAX one.
 - GroupNorm(+SiLU) gradients against the VJP of ``_group_norm_ref``.
 - ``sid_denoise``, ``snr`` and ``get_velocity`` against JAX.
 - UNet remat: policies ``full`` and ``flash`` give the gradients of no
@@ -74,6 +75,39 @@ def test_attention_backward_matches_pallas(mode, sk, monkeypatch):
         for a, b, name in zip(grads, ref, "qkv"):
             np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **GRAD,
                                        err_msg=f"d{name} ({mode}, {sk} keys)")
+
+
+@pytest.mark.parametrize("mode", ["twopass", "fused", "unknown", None])
+def test_attention_backward_follows_sidlsg_flash_bwd(mode, monkeypatch):
+    """Autograd through ``ops.attention`` reads ``SIDLSG_FLASH_BWD`` at each
+    backward, as JAX ``_BWD_MODE`` does: ``twopass`` calls
+    ``flash_attn_bwd_twopass`` (K5 + K6 on the card), any other value or
+    none calls ``flash_attn_bwd`` (K4); the gradients match the Pallas
+    backward that JAX picks under the same variable, in interpret mode."""
+    if mode is None:
+        monkeypatch.delenv("SIDLSG_FLASH_BWD", raising=False)
+    else:
+        monkeypatch.setenv("SIDLSG_FLASH_BWD", mode)
+    attn_mod = sys.modules["sid_lsg_torch.ops.attention"]
+    calls = []
+    for name in ("flash_attn_bwd", "flash_attn_bwd_twopass"):
+        def spy(*args, _fn=getattr(attn_mod, name), _name=name):
+            calls.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(attn_mod, name, spy)
+    rng = np.random.default_rng(21)
+    q, k, v = _normal(rng, 1, 2, 64, 40), _normal(rng, 1, 2, 77, 40), _normal(rng, 1, 2, 77, 40)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jnp.sin(jops.attention(q_, k_, v_, impl="pallas")))
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(torch.sin(ops.attention(qt, kt, vt)).sum(), (qt, kt, vt))
+    assert calls == ["flash_attn_bwd_twopass" if mode == "twopass" else "flash_attn_bwd"]
+    for a, b, name in zip(got, ref, "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD, err_msg=f"d{name} ({mode})")
 
 
 @pytest.mark.parametrize("silu", [False, True])
