@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 ``--baseline ROOT`` names another checkout (an unpacked ``git archive`` of
 a parent commit, say): its kernels are built from ``ROOT/sid_lsg_torch/csrc``
-and its K1, K4, K6 and K7 are timed beside this tree's at every shape of
+and its K1, K4, K5, K6 and K7 are timed beside this tree's at every shape of
 phases 6, 11 and 16, in the same run on the same card (its K7 through its
 own ``sid_lsg_torch/ops/bias_act.py``, ``load_baseline_bias_act``);
 where it has the two-kernel K2 (``sidlsg_gn_stats`` with a scratch buffer),
@@ -21,9 +21,9 @@ the SiD-LSG distillation train step (phases 7-11) and the SiDA adversarial
 train step (phases 12-16).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time,
-   the card's name and power limit, the registers and spills of K1's, K4's
-   and K6's kernels (``-Xptxas -v``) and the dynamic shared memory of each
-   of their instantiations.
+   the card's name and power limit, the registers and spills of K1's, K4's,
+   K5's and K6's kernels (``-Xptxas -v``) and the dynamic shared memory of
+   each of their instantiations.
 2. Warm-up generation: text -> UNet -> x0 -> VAE decode once; the launch
    counters record every distinct kernel input shape of the path; x0 must be
    finite and the images of the right shape and not constant.
@@ -70,7 +70,9 @@ train step (phases 12-16).
    that carry grad.
 8. Kernel check of the training path: K4, K5 and K6 against
    ``flash_attn_bwd_ref`` at every shape the step gave K4, K4 against
-   K5 + K6, and K5 + K6 run twice for the same bits; K1, K8, K2 and K3 at
+   K5 + K6, and the two-pass backward (``flash_attn_bwd_twopass``: one
+   delta pre-pass, K5, K6) run twice for the same bits, which are also those
+   of K5 and K6 called apart; K1, K8, K2 and K3 at
    the step's shapes phase 3 did not check.  The
    backward's outputs are linear in dO and differ in size by orders of
    magnitude, so each is compared after scaling by the power of two that
@@ -85,15 +87,18 @@ train step (phases 12-16).
    kernels); the step's FLOPs (FlopCounterMode plus the attention kernels'
    FLOPs from the recorded shapes, which the counter cannot see) as ``mfu``
    over 989 TFLOP/s.  Then the same trainer under SIDLSG_FLASH_BWD=twopass
-   (restored after): counters zeroed, one step (the two-pass path's main
-   run: losses finite, K5 and K6 once per attention backward, K4 never),
-   and the median of 3 steps beside the fused median.
+   (restored after): counters zeroed, one step under torch.profiler (the
+   two-pass path's main run: losses finite, K5 and K6 once per attention
+   backward, K4 never, and the delta pre-pass once per two-pass backward
+   by the trace's kernel names), and the median of 3 steps beside the
+   fused median.
 11. Backward kernel timing: K4, K5 and K6 at the step's shapes with CUDA
    events, each printed at each shape and summed over one step (K4's
    launches x time; K5 and K6 at the two-pass step's launches, which are
    K4's), beside bound, plain version and SDPA's backward (forward +
-   backward minus forward); K1 at the step's shapes, summed over one step
-   (with ``--baseline``, the baseline's K1, K4 and K6 beside them); the
+   backward minus forward), and the two-pass backward as one call; K1 at
+   the step's shapes, summed over one step (with ``--baseline``, the
+   baseline's K1, K4, K5 and K6 beside them); the
    GroupNorm kernels at the step's keys as phase 6 times them, summed over
    one step.
 
@@ -130,7 +135,7 @@ train step (phases 12-16).
    baseline K7's), with its bound and plain version; K7 at (8, 512, 32, 32) in f32 and bf16
    on the device alone beside its bytes bound; K4, K5 and K6 each at the
    new f32 shapes beside bound, plain version and SDPA's backward, with the
-   SDPA backend named;
+   SDPA backend named (with ``--baseline``, the baseline's K4, K5 and K6);
    K1 at the step's shapes that phases 6 and 11 did not time (the DINO
    ViT's (4, 6, 197, 64) f32); with ``--baseline``, the baseline's K1 and
    K4 beside them; the GroupNorm kernels at the step's keys, summed over one
@@ -410,10 +415,11 @@ def baseline_ms(fn) -> float:
         return time_ms(fn)
 
 
-# The kernel functions of K1, K4 and K6 (K6 is K4's sweep without its dQ
-# section, under names of its own), by their names in the build log.
+# The kernel functions of K1, K4, K5 and K6 (K6 is K4's sweep without its
+# dQ section, under names of its own), by their names in the build log.
 PTXAS_KERNELS = {"fwd_bf16_wgmma": "K1", "fwd_f32_tf32x3": "K1", "bwd_bf16_wgmma": "K4",
-                 "bwd_f32_tf32x3": "K4", "bwd_dkv_bf16_wgmma": "K6", "bwd_dkv_f32_tf32x3": "K6"}
+                 "bwd_f32_tf32x3": "K4", "bwd_dq_bf16_wgmma": "K5", "bwd_dq_f32_tf32x3": "K5",
+                 "bwd_dkv_bf16_wgmma": "K6", "bwd_dkv_f32_tf32x3": "K6"}
 
 
 def mangled_function(name: str):
@@ -432,8 +438,9 @@ def mangled_function(name: str):
 
 
 def print_kernel_build(lib_path) -> None:
-    """Registers and spills of K1's, K4's and K6's kernels from ``-Xptxas
-    -v``, and the dynamic shared memory each instantiation's launch takes."""
+    """Registers and spills of K1's, K4's, K5's and K6's kernels from
+    ``-Xptxas -v``, and the dynamic shared memory each instantiation's
+    launch takes."""
     from sid_lsg_torch.ops import _build
 
     rows = []
@@ -454,7 +461,8 @@ def print_kernel_build(lib_path) -> None:
         for dp in dps:
             print(f"[smem] {'bf16' if code else 'f32'} head dim {dp}: K1 "
                   f"{lib.sidlsg_flash_attn_fwd_smem(code, dp)} B, K4 "
-                  f"{lib.sidlsg_flash_attn_bwd_smem(code, dp)} B, K6 "
+                  f"{lib.sidlsg_flash_attn_bwd_smem(code, dp)} B, K5 "
+                  f"{lib.sidlsg_flash_attn_bwd_dq_smem(code, dp)} B, K6 "
                   f"{lib.sidlsg_flash_attn_bwd_dkv_smem(code, dp)} B of dynamic shared memory")
 
 
@@ -763,7 +771,8 @@ def bwd_cases(key, gen):
     """For one shape K4 was launched at: inputs made as K1's check makes
     them, the plain backward (f32) and, per backward kernel, (kernel fn,
     plain outputs it is held to, bytes, flops); plus SDPA's forward with
-    grad and its forward + backward on the same inputs."""
+    grad and its forward + backward on the same inputs, and the two-pass
+    backward as one call (``flash_attn_bwd_twopass``)."""
     import torch
     import torch.nn.functional as F
 
@@ -797,7 +806,7 @@ def bwd_cases(key, gen):
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl)
     sdpa_both = lambda: torch.autograd.grad(sdpa_fwd(), (ql, kl, vl), dout)
-    return cases, plain, (sdpa_fwd, sdpa_both)
+    return cases, plain, (sdpa_fwd, sdpa_both), lambda: ops.flash_attn_bwd_twopass(*args)
 
 
 class K1Sweep:
@@ -934,12 +943,13 @@ def compare_tiny(label, card, cpu) -> None:
 def check_bwd(key, gen, max_abs):
     """K4, K5 and K6 against the plain backward at one shape K4 was launched
     at, K4 against K5 + K6, at the tolerance of the shape's dtype (each
-    output scaled as phase 8 says), and K5 + K6 run twice for the same bits;
-    raises ``max_abs`` per kernel to its largest error; returns
+    output scaled as phase 8 says), and the two-pass backward run twice for
+    the same bits, which must be those of K5 and K6 called apart; raises
+    ``max_abs`` per kernel to its largest error; returns
     ``bwd_cases(key, gen)``."""
     import torch
 
-    cases, plain, sdpa = bwd_cases(key, gen)
+    cases, plain, sdpa, twopass = bwd_cases(key, gen)
     tol = TOL_F32 if key[2] == "torch.float32" else TOL_BF16
     outs = {}
     for name, (kern, ref, _, _) in cases.items():
@@ -949,22 +959,33 @@ def check_bwd(key, gen, max_abs):
                             check_outputs(f"{name} {key}", outs[name], ref, tol, scale_each=True))
     check_outputs(f"flash_attn_bwd vs two-pass {key}", outs["flash_attn_bwd"],
                   outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"], tol, scale_each=True)
-    again = cases["flash_attn_bwd_dq"][0]() + cases["flash_attn_bwd_dkv"][0]()
+    first, again = twopass(), twopass()
     torch.cuda.synchronize()
-    same = [torch.equal(a, b) for a, b in
-            zip(outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"], again)]
-    print(f"[check] K5 + K6 {key}: two runs bit for bit equal {same}")
+    same = [torch.equal(a, b) for a, b in zip(first, again)]
+    apart = [torch.equal(a, b) for a, b in
+             zip(first, outs["flash_attn_bwd_dq"] + outs["flash_attn_bwd_dkv"])]
+    print(f"[check] K5 + K6 {key}: two runs bit for bit equal {same}; equal to K5 and K6 called "
+          f"apart {apart}")
     require(all(same), f"K5 + K6 at {key}: two runs differ")
-    return cases, plain, sdpa
+    require(all(apart), f"K5 + K6 at {key}: the two-pass call differs from K5 and K6 apart")
+    return cases, plain, sdpa, twopass
+
+
+# Substrings of the device kernel names of the backward's kernels in a trace.
+TRACE_BWD_NAMES = {"delta": ("bwd_delta",), "K4": ("bwd_bf16_wgmma", "bwd_f32_tf32x3"),
+                   "K5": ("bwd_dq_",), "K6": ("bwd_dkv_",)}
 
 
 def twopass_steps(trainer, fused_launches: dict) -> dict:
     """Phase 10's second half: ``trainer`` under SIDLSG_FLASH_BWD=twopass
-    (restored after).  Counters zeroed, one step (the two-pass path's main
-    run): losses finite, K5 and K6 once per attention backward (as many as
-    K4's launches in the fused step) and no K4; then the median of
+    (restored after).  Counters zeroed, one step under torch.profiler (the
+    two-pass path's main run): losses finite, K5 and K6 once per attention
+    backward (as many as K4's launches in the fused step), no K4, and in the
+    trace one delta pre-pass per two-pass backward; then the median of
     TWOPASS_STEPS timed steps.  Returns that run's launches and the median."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from sid_lsg_torch.ops import registry
 
@@ -972,16 +993,24 @@ def twopass_steps(trainer, fused_launches: dict) -> dict:
     os.environ["SIDLSG_FLASH_BWD"] = "twopass"
     try:
         registry.reset()
-        metrics = trainer.step()
-        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            metrics = trainer.step()
+            torch.cuda.synchronize()
         launches = registry.counts()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        traced = {k: sum(any(sub in n for sub in subs) for n in names)
+                  for k, subs in TRACE_BWD_NAMES.items()}
         losses = {k: float(metrics[k]) for k in ("fake_score_loss", "g_loss")}
-        print(f"[twopass] main step: losses {losses}, launches {launches}")
+        print(f"[twopass] main step: losses {losses}, launches {launches}; traced device kernels "
+              f"of the backward {traced}")
         require(all(math.isfinite(x) for x in losses.values()), f"twopass losses not finite: {losses}")
         want = fused_launches["flash_attn_bwd"]
         require(launches["flash_attn_bwd"] == 0 and want > 0
                 and launches["flash_attn_bwd_dq"] == launches["flash_attn_bwd_dkv"] == want,
                 f"twopass: K5/K6/K4 launches {launches} where K5 = K6 = {want} and K4 = 0")
+        require(traced == {"delta": want, "K4": 0, "K5": want, "K6": want},
+                f"twopass: traced kernels {traced} where the delta pre-pass, K5 and K6 each run "
+                f"{want} times and K4 never")
         step_s = []
         for _ in range(TWOPASS_STEPS):
             t0 = time.perf_counter()
@@ -1115,15 +1144,20 @@ def train_phases(card: str, gen, serving_keys):
     entries = []
     rows = {name: {"ms": 0.0, "base_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
                    "bytes_ms": 0.0, "library_ms": 0.0} for name in BWD_KERNELS}
-    for key, (cases, plain, (sdpa_fwd, sdpa_both)) in sorted(bwd.items(), key=lambda kv: str(kv[0])):
+    twopass_ms = 0.0
+    for key, (cases, plain, (sdpa_fwd, sdpa_both), twopass_fn) in sorted(bwd.items(),
+                                                                          key=lambda kv: str(kv[0])):
         n = train_keys["flash_attn_bwd"][key]
         plain_ms = time_ms(plain)
         sdpa_bwd_ms = time_ms(sdpa_both) - time_ms(sdpa_fwd)
+        tp_ms = time_ms(twopass_fn)
+        twopass_ms += n * tp_ms
+        print(f"[time] flash_attn_bwd_twopass {key} x{n}: {tp_ms:.4f} ms (one call: delta, K5, K6)")
         for name, (kern, _, nbytes, flops) in cases.items():
             ops_ms = flops / PEAK_FLOPS[key[2]] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             ms = time_ms(kern)
-            base = baseline_ms(kern) if name != "flash_attn_bwd_dq" else 0.0
+            base = baseline_ms(kern)
             r = rows[name]
             for f, x in (("ms", ms), ("base_ms", base), ("plain_ms", plain_ms),
                          ("bound_ms", max(ops_ms, bytes_ms)), ("ops_ms", ops_ms),
@@ -1145,9 +1179,11 @@ def train_phases(card: str, gen, serving_keys):
         })
     k4, k5, k6 = (rows[n] for n in BWD_KERNELS)
     print(f"[time] per train step: K4 {k4['ms']:.4f} ms, baseline {k4['base_ms']:.4f} ms, bound "
-          f"{k4['bound_ms']:.4f} ms; K5 {k5['ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms; K6 "
-          f"{k6['ms']:.4f} ms, baseline {k6['base_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms; "
-          f"K5 + K6 {k5['ms'] + k6['ms']:.4f} ms; SDPA backward {k4['library_ms']:.4f} ms")
+          f"{k4['bound_ms']:.4f} ms; K5 {k5['ms']:.4f} ms, baseline {k5['base_ms']:.4f} ms, bound "
+          f"{k5['bound_ms']:.4f} ms; K6 {k6['ms']:.4f} ms, baseline {k6['base_ms']:.4f} ms, bound "
+          f"{k6['bound_ms']:.4f} ms; K5 + K6 {k5['ms'] + k6['ms']:.4f} ms (baseline "
+          f"{k5['base_ms'] + k6['base_ms']:.4f} ms), as one two-pass call {twopass_ms:.4f} ms; SDPA "
+          f"backward {k4['library_ms']:.4f} ms")
     time_fwd_keys(train_keys["flash_attn_fwd"], gen, "train step")
     time_gn_keys(train_keys, gen, "train step")
     return entries, train_keys, phase10
@@ -1426,15 +1462,16 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
         print(f"[k7-time] bias_act {off} (off the path): device alone "
               f"{k7_text(row, 'device_ms', 1e3, 'us')}; bytes bound {row['bytes_ms'] * 1e3:.3f} us "
               f"(share {row['bytes_ms'] / row['device_ms']:.3f})")
-    k4 = dict.fromkeys(("ms", "base_ms", "k5_ms", "k6_ms", "k6_base_ms", "bound_ms", "k5_bound_ms",
-                        "k6_bound_ms", "plain_ms", "sdpa_ms"), 0.0)
-    for key, (cases, plain, (sdpa_fwd, sdpa_both)) in bwd.items():
+    k4 = dict.fromkeys(("ms", "base_ms", "k5_ms", "k5_base_ms", "k6_ms", "k6_base_ms", "twopass_ms",
+                        "bound_ms", "k5_bound_ms", "k6_bound_ms", "plain_ms", "sdpa_ms"), 0.0)
+    for key, (cases, plain, (sdpa_fwd, sdpa_both), twopass_fn) in bwd.items():
         n = sida_keys["flash_attn_bwd"][key]
         bounds = {name: max(flops / PEAK_FLOPS[key[2]], nbytes / PEAK_BYTES) * 1e3
                   for name, (_, _, nbytes, flops) in cases.items()}
         kern, k5, k6 = (cases[name][0] for name in BWD_KERNELS)
         row = {"ms": time_ms(kern), "base_ms": baseline_ms(kern), "k5_ms": time_ms(k5),
-               "k6_ms": time_ms(k6), "k6_base_ms": baseline_ms(k6),
+               "k5_base_ms": baseline_ms(k5), "k6_ms": time_ms(k6), "k6_base_ms": baseline_ms(k6),
+               "twopass_ms": time_ms(twopass_fn),
                "bound_ms": bounds["flash_attn_bwd"], "k5_bound_ms": bounds["flash_attn_bwd_dq"],
                "k6_bound_ms": bounds["flash_attn_bwd_dkv"], "plain_ms": time_ms(plain),
                "sdpa_ms": time_ms(sdpa_both) - time_ms(sdpa_fwd)}
@@ -1443,15 +1480,18 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
         for f in k4:
             k4[f] += n * row[f]
         print(f"[time] flash_attn_bwd {key} x{n}: K4 {row['ms']:.4f} ms (baseline "
-              f"{row['base_ms']:.4f}, bound {row['bound_ms']:.4f}); K5 {row['k5_ms']:.4f} (bound "
-              f"{row['k5_bound_ms']:.4f}); K6 {row['k6_ms']:.4f} (baseline {row['k6_base_ms']:.4f}, "
-              f"bound {row['k6_bound_ms']:.4f}); plain {row['plain_ms']:.4f}; SDPA backward "
+              f"{row['base_ms']:.4f}, bound {row['bound_ms']:.4f}); K5 {row['k5_ms']:.4f} (baseline "
+              f"{row['k5_base_ms']:.4f}, bound {row['k5_bound_ms']:.4f}); K6 {row['k6_ms']:.4f} "
+              f"(baseline {row['k6_base_ms']:.4f}, bound {row['k6_bound_ms']:.4f}); two-pass call "
+              f"{row['twopass_ms']:.4f}; plain {row['plain_ms']:.4f}; SDPA backward "
               f"{row['sdpa_ms']:.4f} ({backend})")
     print(f"[time] per SiDA step at the new f32 shapes: K4 {k4['ms']:.4f} ms (baseline "
-          f"{k4['base_ms']:.4f}, bound {k4['bound_ms']:.4f}); K5 {k4['k5_ms']:.4f} ms (bound "
-          f"{k4['k5_bound_ms']:.4f}); K6 {k4['k6_ms']:.4f} ms (baseline {k4['k6_base_ms']:.4f}, "
-          f"bound {k4['k6_bound_ms']:.4f}); K5 + K6 {k4['k5_ms'] + k4['k6_ms']:.4f} ms; plain "
-          f"{k4['plain_ms']:.4f}; SDPA backward {k4['sdpa_ms']:.4f} ms")
+          f"{k4['base_ms']:.4f}, bound {k4['bound_ms']:.4f}); K5 {k4['k5_ms']:.4f} ms (baseline "
+          f"{k4['k5_base_ms']:.4f}, bound {k4['k5_bound_ms']:.4f}); K6 {k4['k6_ms']:.4f} ms (baseline "
+          f"{k4['k6_base_ms']:.4f}, bound {k4['k6_bound_ms']:.4f}); K5 + K6 "
+          f"{k4['k5_ms'] + k4['k6_ms']:.4f} ms (baseline {k4['k5_base_ms'] + k4['k6_base_ms']:.4f}), "
+          f"as one two-pass call {k4['twopass_ms']:.4f} ms; plain {k4['plain_ms']:.4f}; SDPA backward "
+          f"{k4['sdpa_ms']:.4f} ms")
     new_fwd = {key: n for key, n in sida_keys["flash_attn_fwd"].items()
                if key not in checked["flash_attn_fwd"]}
     time_fwd_keys(new_fwd, gen, "SiDA step at the shapes the train step lacks")

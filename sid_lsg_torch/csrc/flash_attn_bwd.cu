@@ -93,19 +93,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kFarLse = 1e30f;  // lse of rows past S_q: their P is exp(-inf) = 0
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (lo, hi) less their bf16 pair `packed`, packed to bf16: what rounding left.
-__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi, uint32_t packed) {
-  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
-  return pack_bf16(lo - h.x, hi - h.y);
-}
 
 __global__ void cast_f32_bf16(const float* __restrict__ src, bf16* __restrict__ dst, long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -712,18 +700,6 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, const void
   return cudaErrorInvalidValue;
 }
 
-// What both entries require: shapes the kernels take, d a whole 16-byte
-// row (the wrapper pads other head dims with zero columns), bh within the
-// grid's y limit, and 16-byte aligned tensors.
-bool inputs_ok(const void* q, const void* k, const void* v, const void* dout, const void* dk,
-               const void* dv, int bh, int sq, int sk, int d, int dtype) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-                         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
-  return shape_ok(bh, sq, sk, d, dtype) && bh <= 65535 && d % (dtype == 1 ? 8 : 4) == 0 &&
-         addr % 16 == 0;
-}
-
 template <bool DQ>
 int bwd_smem(int dtype, int d) {
   if (dtype == 1 && d % 8 == 0) {
@@ -747,6 +723,14 @@ int bwd_smem(int dtype, int d) {
 }
 
 }  // namespace
+
+cudaError_t sidlsg::bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv, int bh,
+                            int sq, int sk, int d, float scale, int dtype, cudaStream_t st) {
+  return dtype == 1
+             ? dispatch_bf16<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, sq, sk, d, scale, st)
+             : dispatch_f32<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, sq, sk, d, scale, st);
+}
 
 extern "C" {
 
@@ -794,10 +778,8 @@ int sidlsg_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const
   float* dl = static_cast<float*>(delta);
   cudaError_t err = run_delta(out, dout, dl, (long long)bh * sq, d, dtype, st);
   if (err != cudaSuccess) return err;
-  const float* lf = static_cast<const float*>(lse);
-  return dtype == 1
-             ? dispatch_bf16<false>(q, k, v, dout, lf, dl, nullptr, dk, dv, bh, sq, sk, d, scale, st)
-             : dispatch_f32<false>(q, k, v, dout, lf, dl, nullptr, dk, dv, bh, sq, sk, d, scale, st);
+  return sidlsg::bwd_dkv(q, k, v, dout, static_cast<const float*>(lse), dl, dk, dv, bh, sq, sk, d,
+                         scale, dtype, st);
 }
 
 // Dynamic shared memory a launch of the main kernel of

@@ -44,10 +44,12 @@ _SIGNATURES = {
     "sidlsg_flash_attn_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_flash_attn_bwd_dq": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_flash_attn_bwd_dkv": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _P],
+    "sidlsg_flash_attn_bwd_twopass": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
     "sidlsg_bias_act": [_P, _P, _P, _L, _I, _L, _I, _F, _F, _F, _I, _P],
     "sidlsg_flash_attn_fwd_smem": [_I, _I],
     "sidlsg_flash_attn_bwd_smem": [_I, _I],
     "sidlsg_flash_attn_bwd_dkv_smem": [_I, _I],
+    "sidlsg_flash_attn_bwd_dq_smem": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

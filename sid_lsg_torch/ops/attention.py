@@ -7,11 +7,12 @@ Port of ``sid_lsg_tpu/ops/attention.py``.  Layout (B, H, S, D).
 - ``flash_attn_fwd``: kernel K1 (``csrc/flash_attn_fwd.cu``).
 - ``flash_attn_bwd``: kernel K4 (``csrc/flash_attn_bwd.cu``), the fused
   backward: one sweep, dQ summed by bulk reduce-adds in no fixed order.
-- ``flash_attn_bwd_dq`` / ``flash_attn_bwd_dkv``: kernels K5
-  (``csrc/flash_attn_bwd_twopass.cu``) and K6 (K4's sweep without dQ, in
-  ``csrc/flash_attn_bwd.cu``); ``flash_attn_bwd_twopass`` runs both, the
-  two-pass backward, which has no atomics or reduce-adds and so gives the
-  same gradients bit for bit on every run.
+- ``flash_attn_bwd_dq`` / ``flash_attn_bwd_dkv``: kernels K5 (query rows
+  stationary, dQ in registers; ``csrc/flash_attn_bwd_twopass.cu``) and K6
+  (K4's sweep without dQ, in ``csrc/flash_attn_bwd.cu``);
+  ``flash_attn_bwd_twopass`` runs both in one call on one delta pre-pass,
+  the two-pass backward, which has no atomics or reduce-adds and so gives
+  the same gradients bit for bit on every run.
 
 Autograd runs K4, or K5 + K6 when ``SIDLSG_FLASH_BWD=twopass``, read at
 each backward as the JAX package reads it (``_BWD_MODE``).
@@ -37,8 +38,8 @@ from ._build import check, dtype_code, library, use_kernel
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = {torch.bfloat16: 160, torch.float32: 512}  # K1, K4, K5, K6
-# K1, K4 and K6 read rows by TMA (bf16) or 16-byte copies (f32): a row of the
-# head dim they are given is a multiple of 16 bytes.
+# K1, K4, K5 and K6 read rows by TMA (bf16) or 16-byte copies (f32): a row of
+# the head dim they are given is a multiple of 16 bytes.
 HEAD_DIM_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -90,7 +91,7 @@ def _check_qkv(what: str, q, k, v, max_d: int) -> None:
 
 
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
-    """The head dim K1, K4 and K6 are given for head dim ``d``: ``d`` rounded up
+    """The head dim K1, K4, K5 and K6 are given for head dim ``d``: ``d`` rounded up
     to a row of 16 bytes (the wrapper pads q, k, v, out and dout with zero
     columns, which change neither scores nor the first ``d`` columns)."""
     m = HEAD_DIM_MULTIPLE[dtype]
@@ -135,6 +136,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_inputs(what, q, k, v, out, lse, dout):
+    """The inputs of K4, K5 or K6, checked, contiguous and padded to the
+    head dim the kernels take; returns them and that head dim."""
     _check_qkv(what, q, k, v, MAX_HEAD_DIM.get(q.dtype, 0))
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"{what}: out{tuple(out.shape)} dout{tuple(dout.shape)} "
@@ -142,16 +145,9 @@ def _bwd_inputs(what, q, k, v, out, lse, dout):
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"{what}: out {out.dtype}, dout {dout.dtype}, lse {lse.dtype} "
                         f"for q {q.dtype}")
-    return tuple(t.contiguous() for t in (q, k, v, out, lse, dout))
-
-
-def _sweep_inputs(what, q, k, v, out, lse, dout):
-    """The inputs of K4 or K6, checked, contiguous and padded to the head
-    dim the kernels take; returns them and that head dim."""
-    q, k, v, out, lse, dout = _bwd_inputs(what, q, k, v, out, lse, dout)
     d = kernel_head_dim(q.shape[3], q.dtype)
     q, k, v, out, dout = (_kernel_operand(t, d) for t in (q, k, v, out, dout))
-    return q, k, v, out, lse, dout, d
+    return q, k, v, out, lse.contiguous(), dout, d
 
 
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -162,7 +158,7 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)
     d_in = q.shape[3]
-    q, k, v, out, lse, dout, d = _sweep_inputs("flash_attn_bwd", q, k, v, out, lse, dout)
+    q, k, v, out, lse, dout, d = _bwd_inputs("flash_attn_bwd", q, k, v, out, lse, dout)
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -183,21 +179,24 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
 
 def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                       lse: torch.Tensor, dout: torch.Tensor, scale: float) -> torch.Tensor:
-    """dq by kernel K5 (one block per q-tile, dQ in registers, no atomics)
-    on a CUDA tensor; the dq of ``flash_attn_bwd_ref`` on a CPU tensor."""
+    """dq by kernel K5 (query rows stationary, dQ in registers, no atomics;
+    the head dim padded as for K4) on a CUDA tensor; the dq of
+    ``flash_attn_bwd_ref`` on a CPU tensor."""
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)[0]
-    q, k, v, out, lse, dout = _bwd_inputs("flash_attn_bwd_dq", q, k, v, out, lse, dout)
-    b, h, sq, d = q.shape
+    d_in = q.shape[3]
+    q, k, v, out, lse, dout, d = _bwd_inputs("flash_attn_bwd_dq", q, k, v, out, lse, dout)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = library().sidlsg_flash_attn_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b * h, sq, k.shape[2], d, float(scale), dtype_code(q),
+        delta.data_ptr(), dq.data_ptr(), b * h, sq, sk, d, float(scale), dtype_code(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attn_bwd_dq")
-    registry.record("flash_attn_bwd_dq", (tuple(q.shape), tuple(k.shape), str(q.dtype)))
-    return dq
+    registry.record("flash_attn_bwd_dq", ((b, h, sq, d_in), (b, h, sk, d_in), str(q.dtype)))
+    return dq if d == d_in else dq[..., :d_in]
 
 
 def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -209,7 +208,7 @@ def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)[1:]
     d_in = q.shape[3]
-    q, k, v, out, lse, dout, d = _sweep_inputs("flash_attn_bwd_dkv", q, k, v, out, lse, dout)
+    q, k, v, out, lse, dout, d = _bwd_inputs("flash_attn_bwd_dkv", q, k, v, out, lse, dout)
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -227,12 +226,28 @@ def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
 
 def flash_attn_bwd_twopass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                            lse: torch.Tensor, dout: torch.Tensor, scale: float) -> Grads:
-    """(dq, dk, dv) by K5 and K6: no atomics, so the result is
-    deterministic; ``flash_attn_bwd_ref`` on a CPU tensor."""
+    """(dq, dk, dv) by K5 and K6 in one call, on one delta pre-pass: no
+    atomics, so the result is deterministic; ``flash_attn_bwd_ref`` on a
+    CPU tensor."""
     if not use_kernel(q, k, v, out, lse, dout):
         return flash_attn_bwd_ref(q, k, v, out, lse, dout, scale)
-    dq = flash_attn_bwd_dq(q, k, v, out, lse, dout, scale)
-    return (dq,) + flash_attn_bwd_dkv(q, k, v, out, lse, dout, scale)
+    d_in = q.shape[3]
+    q, k, v, out, lse, dout, d = _bwd_inputs("flash_attn_bwd_twopass", q, k, v, out, lse, dout)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = library().sidlsg_flash_attn_bwd_twopass(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, d,
+        float(scale), dtype_code(q), torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_attn_bwd_twopass")
+    key = ((b, h, sq, d_in), (b, h, sk, d_in), str(q.dtype))
+    registry.record("flash_attn_bwd_dq", key)
+    registry.record("flash_attn_bwd_dkv", key)
+    if d != d_in:
+        return dq[..., :d_in], dk[..., :d_in], dv[..., :d_in]
+    return dq, dk, dv
 
 
 # The op that autograd and selective checkpointing see: K1 forward (out,

@@ -328,15 +328,17 @@ def test_flash_attn_bwd_dq_at_cross_attention_over_seeds(dev, b, sq, d):
             assert_close(dq.float() * c, ref[0] * c, torch.bfloat16)
 
 
-# The tile edges of K1 and K4: S_q and S_k that are not multiples of their
-# tiles (bf16: 128 queries and 64 keys in K1, 128 keys and 64 queries in K4;
-# f32: 32 / 32 in K1, 32 keys and 16 queries in K4), bh below and above the
+# The tile edges of K1, K4 and K5 + K6: S_q and S_k that are not multiples
+# of their tiles (bf16: 128 or 192 queries and 64 keys in K1 and K5, 128
+# keys and 64 queries in K4 and K6; f32: 32 / 32 in K1, 16 queries and 32
+# keys in K5, 32 keys and 16 queries in K4 and K6), bh below and above the
 # 132 SMs, and every head dim the presets reach (bf16 40/64/80/160; f32
 # 64/300/512; 36 pads to 40 in the wrapper).
 EDGE_SHAPES = [
     (torch.bfloat16, 1, 1, 77, 77, 40),
     (torch.bfloat16, 2, 100, 197, 300, 64),
     (torch.bfloat16, 1, 3, 4097, 77, 80),
+    (torch.bfloat16, 2, 70, 193, 129, 80),
     (torch.bfloat16, 1, 2, 300, 4097, 160),
     (torch.bfloat16, 3, 50, 64, 64, 160),
     (torch.bfloat16, 1, 4, 129, 65, 36),
@@ -344,6 +346,7 @@ EDGE_SHAPES = [
     (torch.float32, 1, 140, 77, 33, 64),
     (torch.float32, 2, 1, 300, 4097, 300),
     (torch.float32, 1, 1, 4097, 1000, 512),
+    (torch.float32, 1, 3, 17, 31, 512),
 ]
 
 
@@ -356,11 +359,32 @@ def test_flash_attn_kernels_at_tile_edges(dev, dtype, b, h, sq, sk, d):
     torch.cuda.synchronize()
     assert_close(out, ref_out, dtype)
     assert_close(lse, ref_lse, torch.float32)
-    got = ops.flash_attn_bwd(*args, d ** -0.5)
+    for fn in (ops.flash_attn_bwd, ops.flash_attn_bwd_twopass):
+        got = fn(*args, d ** -0.5)
+        torch.cuda.synchronize()
+        for gx, rx in zip(got, ref):
+            c = pow2_scale(rx)
+            assert_close(gx.float() * c, rx * c, dtype)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 40), (torch.float32, 512)])
+def test_flash_attn_bwd_twopass_runs_one_delta_pre_pass(dev, dtype, d):
+    """One two-pass backward launches the delta pre-pass once, then K5 and
+    K6 (three kernels in all), counted by name under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, _ = bwd_case(dev, dtype, 2, 2, 300, 200, d)
+    ops.flash_attn_bwd_twopass(*args, d ** -0.5)
     torch.cuda.synchronize()
-    for gx, rx in zip(got, ref):
-        c = pow2_scale(rx)
-        assert_close(gx.float() * c, rx * c, dtype)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.flash_attn_bwd_twopass(*args, d ** -0.5)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA" and "memset" not in
+             e.name.lower() and "memcpy" not in e.name.lower()]
+    assert sum("bwd_delta" in n for n in names) == 1, names
+    assert sum("bwd_dq_" in n for n in names) == 1, names
+    assert sum("bwd_dkv_" in n for n in names) == 1, names
+    assert len(names) == 3, names
 
 
 # K4 against K5 + K6 (K5 shares no kernel code with it; K6 is its sweep

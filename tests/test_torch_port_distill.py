@@ -248,6 +248,13 @@ def test_optimizer_matches_optax(kind):
                                        err_msg=f"{kind} step {step} {k}")
 
 
+def _jax_adam_step(opt, grads, params):
+    """One optax update from a fresh state, applied, compiled as one program
+    (eagerly, each elementwise op compiles once per parameter shape)."""
+    return jax.jit(lambda g, p: optax.apply_updates(p, opt.update(g, opt.init(p), p)[0]))(
+        grads, params)
+
+
 def test_whole_train_step_matches_jax_composition(s):
     """One port train_step (A = 2 rounds of microbatch 2, kappa 1.5 with
     context dropout, EMA ramp from nimg 40) against the same step recomposed
@@ -295,8 +302,7 @@ def test_whole_train_step_matches_jax_composition(s):
             None, key, denom)
         total = grads if total is None else jax.tree_util.tree_map(jnp.add, total, grads)
         f_loss, f_valid = f_loss + float(loss), f_valid + int(aux["n_valid"])
-    upd, _ = jopt_f.update(total, jopt_f.init(fake), fake)
-    fake_new = optax.apply_updates(fake, upd)
+    fake_new = _jax_adam_step(jopt_f, total, fake)
     total, g_loss, g_valid = None, 0.0, 0
     for a, (_, z, noise, t, init_t) in enumerate(draws_g):
         (loss, aux), grads = jax.value_and_grad(JL.g_loss, has_aux=True)(
@@ -304,10 +310,10 @@ def test_whole_train_step_matches_jax_composition(s):
             j(t).astype(jnp.int32), j(init_t).astype(jnp.int32), key, None, key, denom)
         total = grads if total is None else jax.tree_util.tree_map(jnp.add, total, grads)
         g_loss, g_valid = g_loss + float(loss), g_valid + int(aux["n_valid"])
-    upd, _ = jopt_g.update(total, jopt_g.init(gp), gp)
-    g_new = optax.apply_updates(gp, upd)
+    g_new = _jax_adam_step(jopt_g, total, gp)
     beta = float(jdistill.ema_beta(jcfg, jnp.float32(40.0)))
-    ema_new = jax.tree_util.tree_map(lambda p, e: p * (1.0 - beta) + e * beta, g_new, gp)
+    ema_new = jax.jit(lambda new, old: jax.tree_util.tree_map(
+        lambda p, e: p * (1.0 - beta) + e * beta, new, old))(g_new, gp)
 
     assert metrics["ema_beta"] == pytest.approx(beta, rel=1e-6) == ema_beta(cfg, 40.0)
     np.testing.assert_allclose(float(metrics["fake_score_loss"]), f_loss / rounds, rtol=LOSS_RTOL)

@@ -7,6 +7,8 @@ JAX plain references.  Inputs come from numpy seeds.  Tolerance in f32:
 atol 2e-5 / rtol 1e-4 unless a test states another with its reason.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -43,7 +45,7 @@ def _nhwc(y):
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d", [(2, 3, 128, 128, 64), (2, 3, 200, 77, 40), (1, 1, 64, 64, 512)])
-def test_attention_ref_matches_pallas_flash(b, h, sq, sk, d):
+def test_attention_ref_matches_pallas_flash(b, h, sq, sk, d, monkeypatch):
     rng = np.random.default_rng(sq + sk + d)
     q, k, v = _normal(rng, b, h, sq, d), _normal(rng, b, h, sk, d), _normal(rng, b, h, sk, d)
     scale = d ** -0.5
@@ -54,11 +56,27 @@ def test_attention_ref_matches_pallas_flash(b, h, sq, sk, d):
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32)
     np.testing.assert_allclose(out.numpy(), np.asarray(f_out), **F32)
     np.testing.assert_allclose(lse.numpy(), np.asarray(f_lse), **F32)
-    # On CPU tensors the kernel wrapper and the dispatcher are the plain version.
+    # On CPU tensors the kernel wrapper and the dispatcher are the plain
+    # version: each calls ``attention_ref`` once and returns what it returned.
+    # (Two CPU runs of the plain version need not agree bit for bit: a
+    # reduction under load may sum in another order.)
+    plain, calls = ops.attention_ref, []
+
+    def spy(*args, **kwargs):
+        calls.append(plain(*args, **kwargs))
+        return calls[-1]
+
+    monkeypatch.setattr(sys.modules[plain.__module__], "attention_ref", spy)
     fo, fl = ops.flash_attn_fwd(*map(torch.from_numpy, (q, k, v)))
-    torch.testing.assert_close(fo, out, atol=0, rtol=0)
-    torch.testing.assert_close(fl, lse, atol=0, rtol=0)
-    torch.testing.assert_close(ops.attention(*map(torch.from_numpy, (q, k, v))), out, atol=0, rtol=0)
+    assert len(calls) == 1
+    torch.testing.assert_close(fo, calls[0][0], atol=0, rtol=0)
+    torch.testing.assert_close(fl, calls[0][1], atol=0, rtol=0)
+    np.testing.assert_allclose(fo.numpy(), np.asarray(f_out), **F32)
+    np.testing.assert_allclose(fl.numpy(), np.asarray(f_lse), **F32)
+    ao = ops.attention(*map(torch.from_numpy, (q, k, v)))
+    assert len(calls) == 2
+    torch.testing.assert_close(ao, calls[1][0], atol=0, rtol=0)
+    np.testing.assert_allclose(ao.numpy(), np.asarray(j_out), **F32)
 
 
 def test_causal_attention_matches_jax_ref():
