@@ -14,19 +14,32 @@ where it has the two-kernel K2 (``sidlsg_gn_stats`` with a scratch buffer),
 its K2 + K3 are timed beside this tree's GroupNorm route at every GroupNorm
 key.
 
-It drives the port's three paths at full SD1.5 width on random weights from
-a seed, through the CUDA kernels built from ``sid_lsg_torch/csrc``: one-step
-text-to-image generation (batch 4, 512x512, init_timestep 625; phases 2-6),
-the SiD-LSG distillation train step (phases 7-11) and the SiDA adversarial
-train step (phases 12-16).
+It drives the port's paths at full SD1.5 width on random weights from a
+seed, loaded from an HF-layout checkpoint that it writes first, through the
+CUDA kernels built from ``sid_lsg_torch/csrc``: one-step text-to-image
+generation (batch 4, 512x512, init_timestep 625; phases 2-6), the VAE
+encode and ``encode_latents`` (phases 6a-6b), the SiD-LSG distillation train
+step (phases 7-11, with ``load_generator`` and ``--resume`` in 10a) and the
+SiDA adversarial train step on the encoded corpus (phases 12-16).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time,
    the card's name and power limit, the registers and spills of K1's, K4's,
    K5's and K6's kernels (``-Xptxas -v``) and the dynamic shared memory of
    each of their instantiations.
-2. Warm-up generation: text -> UNet -> x0 -> VAE decode once; the launch
-   counters record every distinct kernel input shape of the path; x0 must be
-   finite and the images of the right shape and not constant.
+1b. Checkpoint: ``random_state_dicts("sd15", seed 0)`` written in F16 as an
+   HF-layout directory (``write_safetensors``, ``write_hf_config_jsons``)
+   under a temporary directory that is removed at exit, with the published
+   SD1.5 files' quirks: the text tower under ``text_model.`` with an int64
+   ``position_ids`` buffer, the VAE mid attentions under ``query``, ``key``,
+   ``value`` and ``proj_attn``; and a ``tokenizer/`` of the 512 byte tokens,
+   the two specials and a few merges.  Its write time and size are printed.
+2. Load: ``SDPipeline.from_pretrained(dir, bf16)`` (load time printed); its
+   config must be SD1.5's, its tokenizer the BPE ``CLIPTokenizer``, and its
+   embeddings and x0 must equal, bit for bit, those of a pipeline built
+   directly from the same state dicts rounded through f16.  Warm-up
+   generation: text -> UNet -> x0 -> VAE decode once; the launch counters
+   record every distinct kernel input shape of the path; x0 must be finite
+   and the images of the right shape and not constant.
 3. Kernel check: each kernel against its plain PyTorch version at every
    shape the generation launched, in that shape's dtype, TF32 off (K8
    against ``group_norm_ref``, K2 against ``gn_stats_ref``).  f32
@@ -42,7 +55,8 @@ train step (phases 12-16).
    5e-5 / rtol 1e-3), held to the f32 gate above.
 4. Small reference: the tiny preset on the card (kernels) against the same
    weights on the CPU (plain versions), f32: x0 within atol 5e-4 /
-   rtol 1e-3, images within one uint8 step.
+   rtol 1e-3, images within one uint8 step; the VAE encoder's mean and
+   logvar within atol 5e-4 / rtol 1e-3.
 5. Main path: the launch counters are zeroed, ``SDPipeline.generate`` runs
    once, and every kernel must have launched, with one K8 launch for each
    GroupNorm that ``gn_plan`` sends to ``fused`` and one K2 and one K3 for
@@ -59,9 +73,24 @@ train step (phases 12-16).
    once with inputs warm in L2 and once with L2 flushed by a 256 MB write
    before each call; with ``--baseline``, the baseline's K2 + K3 beside
    them.
+6a. VAE encode: ``SDPipeline.encode_images`` warmed up on the generated
+   batch (4, 512, 512, 3); counters zeroed, one encode (the encode path's
+   run): K1 launched once (the mid attention, f32, D = 512), every
+   GroupNorm launching the kernels ``gn_plan`` routes it to, latents finite;
+   K1, K8, K2 and K3 checked at every shape of the encode as phase 3 checks;
+   seconds per encode and per decode of the batch (median of 5); the
+   kernels timed at the encode's shapes as phase 6 times them.
+6b. ``encode_latents``: the CLI on 8 PNGs (the generated images and their
+   mirror images, ``pngio.write_png``) with the checkpoint at batch 4; its
+   wall time and images/s of the encode alone at batch 4; the corpus that
+   ``LatentDataset`` reads must equal ``encode_images`` of the same images
+   (the VAE scaling included) within bf16 rounding (rtol 2^-8, atol 2^-8 of
+   the RMS), and ``encode_images`` must give the same bits on a second call
+   and on the same batch stored NCHW on the card.
 
 7. Train step: a ``Trainer`` built from the ``sid_train`` flags in
-   ``TRAIN_ARGS`` (SD1.5, batch 4 in one microbatch, kappa 1.5, bf16,
+   ``TRAIN_ARGS`` (``--sd_model`` the phase-1b checkpoint, batch 4 in one
+   microbatch, kappa 1.5, bf16,
    remat ``flash``); counters zeroed, one step (the training path's main
    run): both losses finite, G, psi and the EMA changed, K1, K4 and the
    GroupNorm kernels launched as ``gn_plan`` routes the step's maps, and
@@ -92,6 +121,11 @@ train step (phases 12-16).
    backward, K4 never, and the delta pre-pass once per two-pass backward
    by the trace's kernel names), and the median of 3 steps beside the
    fused median.
+10a. Generator files: the trainer's EMA exported by ``export_generator``;
+   ``from_pretrained(dir).load_generator(file)`` must sample x0 equal, bit
+   for bit, to the EMA applied directly (``unet_apply_fn``); a ``Trainer``
+   built with ``--resume file`` must start with G, psi and the EMA equal to
+   it, bit for bit.  Times printed.
 11. Backward kernel timing: K4, K5 and K6 at the step's shapes with CUDA
    events, each printed at each shape and summed over one step (K4's
    launches x time; K5 and K6 at the two-pass step's launches, which are
@@ -104,7 +138,8 @@ train step (phases 12-16).
 
 12. SiDA step: a ``Trainer`` from ``SIDA_ARGS`` (``TRAIN_ARGS`` plus the
    adversarial weights 0.1, the ``dino`` tower with a random DINO ViT-S/16,
-   synthetic real latents); counters zeroed, one step (the SiDA path's main
+   the real latents of phase 6b's corpus through ``--adv_data``); counters
+   zeroed, one step (the SiDA path's main
    run): the six losses and logits finite, G, psi, the judge's heads, the
    EMA and every spectral ``u`` changed, K1, K4, K7 and the GroupNorm
    kernels (as ``gn_plan`` routes the step's maps) launched, K4 at the
@@ -147,6 +182,7 @@ Any failure raises and exits non-zero.  The last line is the result object.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import ctypes
@@ -158,6 +194,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -191,7 +228,8 @@ GN_KERNELS = ("gn_fused", "gn_stats", "gn_apply")
 BWD_KERNELS = ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 # The training path: `python -m sid_lsg_torch.cli.sid_train` with these flags
 # (the paper's kappa = 1.5, remat `flash`); --max-ticks 1 keeps the schedule
-# short of a state dump, which the port refuses.
+# short of a state dump, which the port refuses.  `--sd_model` becomes the
+# phase-1b checkpoint (`with_flag`).
 TRAIN_ARGS = ["--outdir", "chiprun_out/train", "--sd_model", "sd15", "--batch", "4",
               "--batch-micro", "4", "--cfg_train_fake", "1.5", "--cfg_eval_fake", "1.5",
               "--cfg_eval_real", "1.5", "--init_timestep", "625", "--bf16", "1", "--grad-ckpt", "1",
@@ -200,7 +238,8 @@ TRAIN_BATCH = 4
 TIMED_STEPS = 5
 TWOPASS_STEPS = 3  # timed steps of the same trainer under SIDLSG_FLASH_BWD=twopass
 # The SiDA path: the train step above with the adversarial terms through the
-# projected DINO ViT-S/16 pixel judge (random backbone, synthetic real latents).
+# projected DINO ViT-S/16 pixel judge (random backbone), the real latents
+# from phase 6b's corpus (`--adv_data`, added at run time).
 SIDA_ARGS = TRAIN_ARGS + ["--adv_weight_d", "0.1", "--adv_weight_g", "0.1", "--adv_tower", "dino",
                           "--adv_vit", "s16"]
 SIDA_BATCH = TRAIN_BATCH
@@ -211,6 +250,84 @@ TOL_GRAD = 1e-3  # phase 9: relative, and 1e-4 * max|ref| absolute, per gradient
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def with_flag(args, flag: str, value: str):
+    """``args`` with ``flag``'s value set to ``value`` (appended if absent)."""
+    args = list(args)
+    if flag in args:
+        args[args.index(flag) + 1] = value
+        return args
+    return args + [flag, value]
+
+
+def trainer_from_args(args):
+    from sid_lsg_torch.cli import sid_train
+    from sid_lsg_torch.training.loop import Trainer
+
+    return Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(args)))
+
+
+# The VAE mid attentions' names in the published SD1.5 VAE file.
+LEGACY_VAE_ATTN = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+
+
+def write_tokenizer(tok_dir: str) -> None:
+    """A small CLIP vocab: the 512 byte tokens, a few merges, the two specials."""
+    from sid_lsg_torch.models.tokenizer import bytes_to_unicode
+
+    os.makedirs(tok_dir, exist_ok=True)
+    chars = list(bytes_to_unicode().values())
+    merges = ["t h", "th e</w>", "a n", "o n</w>", "o f</w>", "i n", "r e", "e r</w>", "o r",
+              "a r", "h o", "s t"]
+    vocab = chars + [c + "</w>" for c in chars] + [m.replace(" ", "") for m in merges]
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(tok_dir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({tok: i for i, tok in enumerate(vocab)}, f)
+    with open(os.path.join(tok_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    with open(os.path.join(tok_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"pad_token": "<|endoftext|>", "model_max_length": 77}, f)
+
+
+def write_checkpoint(model_dir: str) -> dict:
+    """Phase 1b: SD1.5's random weights (seed 0) in F16 as an HF-layout
+    directory with the published files' quirks; returns the written state
+    dicts read back as f32, on the card."""
+    import torch
+
+    from sid_lsg_torch.models import SD15
+    from sid_lsg_torch.models.configs import write_hf_config_jsons
+    from sid_lsg_torch.pipeline import random_state_dicts
+    from sid_lsg_torch.runtime.checkpoint import write_safetensors
+
+    half = {part: {k: v.half() for k, v in sd.items()}
+            for part, sd in random_state_dicts(SD15, "cuda", seed=0).items()}
+
+    def legacy(key: str) -> str:
+        for new, old in LEGACY_VAE_ATTN.items():
+            key = key.replace(f"mid_block.attentions.0.{new}.", f"mid_block.attentions.0.{old}.")
+        return key
+
+    files = {
+        "unet/diffusion_pytorch_model.safetensors": half["unet"],
+        "vae/diffusion_pytorch_model.safetensors": {legacy(k): v for k, v in half["vae"].items()},
+        "text_encoder/model.safetensors": {
+            **{f"text_model.{k}": v for k, v in half["text"].items()},
+            "text_model.embeddings.position_ids": torch.arange(77)[None]},
+    }
+    vae_keys = files["vae/diffusion_pytorch_model.safetensors"]
+    require(sum(k.endswith(".query.weight") for k in vae_keys) == 2,
+            "the legacy VAE attention names were not written")
+    write_hf_config_jsons(model_dir, SD15)
+    for rel, tensors in files.items():
+        write_safetensors(tensors, os.path.join(model_dir, rel))
+    write_tokenizer(os.path.join(model_dir, "tokenizer"))
+    return {part: {k: v.float() for k, v in sd.items()} for part, sd in half.items()}
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(root) for n in names)
 
 
 def card_line() -> str:
@@ -1025,24 +1142,174 @@ def twopass_steps(trainer, fused_launches: dict) -> dict:
     return {"launches": launches, "median_s": statistics.median(step_s), "step_s": step_s}
 
 
-def train_phases(card: str, gen, serving_keys):
+def host_seconds(fn, runs: int = 5) -> list:
+    """Seconds per call of ``fn`` on the host clock, each ending in a
+    device synchronisation, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def encode_phase(pipe, images, x0, gen, card: str) -> None:
+    """Phase 6a: the VAE encode of the generated batch."""
+    import torch
+
+    from sid_lsg_torch.ops import registry
+
+    z = pipe.encode_images(images)  # warm-up
+    torch.cuda.synchronize()
+    registry.reset()
+    with GNCalls() as gn_calls:
+        z = pipe.encode_images(images)
+        torch.cuda.synchronize()
+    launches = registry.counts()
+    enc_keys = {name: registry.launches_by_key(name) for name in SERVING_KERNELS}
+    print(f"[encode] latents {tuple(z.shape)}, launches {launches}")
+    require(z.shape == (BATCH, 64, 64, 4) and bool(torch.isfinite(z).all()),
+            f"encode: latents {tuple(z.shape)} not finite")
+    require(launches["flash_attn_fwd"] == 1, "encode: K1 did not launch once")
+    require_gn_routes("encode", launches, gn_calls)
+    for name in SERVING_KERNELS:
+        for key in sorted(enc_keys[name], key=str):
+            check_forward_kernel(name, key, gen)
+    enc_s = host_seconds(lambda: pipe.encode_images(images))
+    dec_s = host_seconds(lambda: pipe.decode(x0))
+    print(f"[encode-time] seconds per encode of the batch (4, 512, 512, 3): {enc_s}, median "
+          f"{statistics.median(enc_s)}; per decode of the batch: {dec_s}, median "
+          f"{statistics.median(dec_s)}; on {card}")
+    time_fwd_keys(enc_keys["flash_attn_fwd"], gen, "encode batch")
+    time_gn_keys(enc_keys, gen, "encode batch")
+
+
+def encode_latents_phase(pipe, images, ckpt: str, tmp: str, card: str) -> str:
+    """Phase 6b: ``encode_latents`` on 8 PNGs; returns the corpus path."""
+    import numpy as np
+    import torch
+
+    from sid_lsg_torch.cli import encode_latents
+    from sid_lsg_torch.cli.pngio import write_png
+    from sid_lsg_torch.data.latents import LatentDataset
+
+    src = os.path.join(tmp, "images")
+    os.makedirs(src)
+    host = images.cpu().numpy()
+    pngs = [host[i] for i in range(BATCH)] + [np.ascontiguousarray(host[i, :, ::-1])
+                                               for i in range(BATCH)]
+    for i, img in enumerate(pngs):
+        write_png(os.path.join(src, f"{i:06d}.png"), img)
+        with open(os.path.join(src, f"{i:06d}.txt"), "w") as f:
+            f.write(PROMPTS[i % BATCH] + (", mirrored" if i >= BATCH else ""))
+    corpus = os.path.join(tmp, "corpus.npz")
+    t0 = time.perf_counter()
+    encode_latents.main(["--source", src, "--dest", corpus, "--repo_id", ckpt, "--batch",
+                         str(BATCH)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    pairs = encode_latents.list_pairs(src)
+    run_s = host_seconds(lambda: encode_latents.encode_corpus(pipe, pairs, BATCH, progress=False),
+                         runs=3)
+    med = statistics.median(run_s)
+    print(f"[encode_latents] CLI on {len(pngs)} PNGs ({host.shape[2]}x{host.shape[1]}, batch "
+          f"{BATCH}) in {cli_s:.3f} s, "
+          f"checkpoint load included; the PNG reading and encode alone: {run_s} s, median {med}, "
+          f"{len(pngs) / med} images/s; on {card}")
+    ds = LatentDataset(corpus)
+    got = torch.from_numpy(np.asarray(ds.latents, np.float32))
+    encode = lambda: torch.cat([pipe.encode_images(torch.from_numpy(np.stack(pngs[i:i + BATCH])))
+                                for i in range(0, len(pngs), BATCH)]).cpu()
+    want, again = encode(), encode()
+    from_card = pipe.encode_images(images).cpu()
+    tol = 2.0 ** -8
+    rms = want.square().mean().sqrt().item()
+    ratio = ((got - want).abs() / (tol * (want.abs() + rms))).max().item()
+    diff = lambda a, b: (a - b).abs().max().item()
+    print(f"[encode_latents] corpus {tuple(got.shape)} f16, captions {len(ds.captions)}; against "
+          f"encode_images of the same images (RMS {rms:.4e}): max abs {diff(got, want):.3e}, "
+          f"err/tol {ratio:.3f} (rtol 2^-8, atol 2^-8 RMS); a second encode_images differs by "
+          f"{diff(again, want):.3e}, the encode of the card's NCHW-strided batch by "
+          f"{diff(from_card, want[:BATCH]):.3e}")
+    require(len(ds) == len(pngs) and ds.captions[0] == PROMPTS[0], "corpus captions")
+    require(ratio <= 1.0, "the corpus disagrees with encode_images beyond bf16 rounding")
+    require(torch.equal(again, want) and torch.equal(from_card, want[:BATCH]),
+            "encode_images depends on the call or on the input's strides")
+    return corpus
+
+
+def generator_files_phase(ema, ckpt: str, tmp: str, train_args) -> None:
+    """Phase 10a: the EMA exported, then ``load_generator`` and ``--resume``."""
+    import torch
+
+    from sid_lsg_torch.diffusion.rng import StackedRandomGenerator
+    from sid_lsg_torch.diffusion.sampling import sid_sampler
+    from sid_lsg_torch.models.unet import unet_apply_fn
+    from sid_lsg_torch.pipeline import SDPipeline
+    from sid_lsg_torch.runtime.checkpoint import export_generator
+
+    path = os.path.join(tmp, "network-snapshot-1-000000.safetensors")
+    t0 = time.perf_counter()
+    export_generator(ema, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = SDPipeline.from_pretrained(ckpt, dtype=torch.bfloat16, device="cuda")
+    pipe.load_generator(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    latents = StackedRandomGenerator(range(BATCH), "cuda").randn((BATCH, 4, 64, 64))
+    latents = latents.permute(0, 2, 3, 1)
+    emb = pipe.encode_prompts(PROMPTS)
+    x0 = pipe.generate_latents(latents, emb, init_timestep=INIT_TIMESTEP)
+    apply = unet_apply_fn(pipe.config.unet, torch.bfloat16)
+    with torch.inference_mode():
+        init_t = torch.full((BATCH,), INIT_TIMESTEP, dtype=torch.int32, device="cuda")
+        x0_ema = sid_sampler(lambda x, t, c: apply(ema, x, t, c), latents.permute(0, 3, 1, 2), emb,
+                             init_t, pipe.scheduler, num_steps=1, dtype=torch.bfloat16)
+    x0_ema = x0_ema.permute(0, 2, 3, 1)
+    same = torch.equal(x0, x0_ema)
+    print(f"[generator] EMA exported in {export_s:.3f} s ({os.path.getsize(path)} bytes); "
+          f"from_pretrained + load_generator in {load_s:.3f} s; x0 bit-equal to the EMA applied "
+          f"directly: {same} (max |diff| {(x0 - x0_ema).abs().max().item():.3e})")
+    require(same, "load_generator's x0 differs from the EMA's")
+    del pipe, x0, x0_ema
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trainer = trainer_from_args(train_args + ["--resume", path])
+    torch.cuda.synchronize()
+    st = trainer.state
+    unequal = {part: sum(not torch.equal(tree[k].detach(), ema[k]) for k in ema)
+               for part, tree in (("G", st.params_G), ("psi", st.params_fake), ("EMA", st.ema))}
+    print(f"[generator] Trainer with --resume built in {time.perf_counter() - t0:.3f} s; tensors "
+          f"unequal to the export: {unequal} of {len(ema)}")
+    require(all(set(tree) == set(ema) for tree in (st.params_G, st.params_fake, st.ema))
+            and not any(unequal.values()), "--resume did not start from the exported EMA")
+    del trainer, st
+    torch.cuda.empty_cache()
+
+
+def train_phases(card: str, gen, serving_keys, ckpt: str, tmp: str):
     """Phases 7-11; returns the kernels-line entries of K4, K5 and K6, the
     step's launch keys and phase 10's numbers."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from sid_lsg_torch.cli import sid_train
     from sid_lsg_torch.models.unet import unet_apply_fn
     from sid_lsg_torch.ops import registry
     from sid_lsg_torch.training.distill import make_train_step
-    from sid_lsg_torch.training.loop import Trainer
 
     # 7. Train step at full width, remat flash, counters zeroed.
+    train_args = with_flag(TRAIN_ARGS, "--sd_model", ckpt)
     t0 = time.perf_counter()
-    trainer = Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(TRAIN_ARGS)))
+    trainer = trainer_from_args(train_args)
     torch.cuda.synchronize()
-    print(f"[train] Trainer (sd15, random weights, mb {TRAIN_BATCH}, kappa 1.5, bf16, remat "
-          f"flash) built in {time.perf_counter() - t0:.3f} s")
+    print(f"[train] Trainer (the sd15 checkpoint, mb {TRAIN_BATCH}, kappa 1.5, bf16, remat "
+          f"flash) built in {time.perf_counter() - t0:.3f} s, checkpoint load included")
     st = trainer.state
     before = {part: {k: v.detach().clone() for k, v in getattr(st, part).items()}
               for part in ("params_G", "params_fake", "ema")}
@@ -1136,7 +1403,11 @@ def train_phases(card: str, gen, serving_keys):
     twopass = twopass_steps(trainer, train_launches)
     print(f"[train-time] seconds per step under SIDLSG_FLASH_BWD=twopass (K5 + K6): "
           f"{twopass['step_s']}, median {twopass['median_s']}; fused (K4): median {med}; on {card}")
+    ema = trainer.state.ema
     del trainer
+    torch.cuda.empty_cache()
+    generator_files_phase(ema, ckpt, tmp, train_args)
+    del ema
     torch.cuda.empty_cache()
     phase10 = {"median_s": med, "images_per_s": TRAIN_BATCH / med, "peak_gib": peak_gib}
 
@@ -1319,23 +1590,24 @@ def k7_text(row, field: str, scale: float, unit: str) -> str:
             f"baseline K7 {one('base_')})")
 
 
-def sida_phases(card: str, gen, checked, phase10) -> dict:
+def sida_phases(card: str, gen, checked, phase10, ckpt: str, corpus: str) -> dict:
     """Phases 12-16; returns the kernels-line entry of K7."""
     import torch
     from torch.nn.attention import SDPBackend
 
     from sid_lsg_torch import ops
-    from sid_lsg_torch.cli import sid_train
     from sid_lsg_torch.models.stylegan_discriminator import spectral_buffers
     from sid_lsg_torch.ops import registry
-    from sid_lsg_torch.training.loop import Trainer
 
     # 12. SiDA step at full width (dino tower), counters zeroed.
+    sida_args = with_flag(with_flag(SIDA_ARGS, "--sd_model", ckpt), "--adv_data", corpus)
     t0 = time.perf_counter()
-    trainer = Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(SIDA_ARGS)))
+    trainer = trainer_from_args(sida_args)
     torch.cuda.synchronize()
-    print(f"[sida] Trainer (sd15, mb {SIDA_BATCH}, dino ViT-S/16 random, synthetic real latents) "
-          f"built in {time.perf_counter() - t0:.3f} s")
+    print(f"[sida] Trainer (the sd15 checkpoint, mb {SIDA_BATCH}, dino ViT-S/16 random, real "
+          f"latents from the encode_latents corpus) built in {time.perf_counter() - t0:.3f} s")
+    require(trainer.latents is not None and len(trainer.latents.dataset) == 2 * BATCH,
+            "the SiDA trainer does not read the encode_latents corpus")
     st = trainer.state
     psi = {k: v for k, v in st.params_fake.items() if not k.startswith("disc.")}
     heads = {k: v for k, v in st.params_fake.items() if k.startswith("disc.")}
@@ -1392,8 +1664,7 @@ def sida_phases(card: str, gen, checked, phase10) -> dict:
     torch.cuda.empty_cache()
 
     # 12 (second half). One step of the encoder tower.
-    enc_args = [a if a != "dino" else "encoder" for a in SIDA_ARGS]
-    trainer = Trainer(sid_train.config_from_args(sid_train.build_parser().parse_args(enc_args)))
+    trainer = trainer_from_args(with_flag(sida_args, "--adv_tower", "encoder"))
     registry.reset()
     t0 = time.perf_counter()
     with GNCalls() as gn_calls:
@@ -1520,7 +1791,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     from sid_lsg_torch.diffusion.rng import StackedRandomGenerator
-    from sid_lsg_torch.models import TINY
+    from sid_lsg_torch.models import SD15, TINY, CLIPTokenizer
     from sid_lsg_torch.ops import _build, registry
     from sid_lsg_torch.pipeline import SDPipeline
 
@@ -1542,12 +1813,40 @@ def main(argv=None) -> int:
         BASELINE = load_baseline(baseline)
         BASELINE_BIAS_ACT = load_baseline_bias_act(baseline)
 
-    # 2. Warm-up generation; records every kernel input shape of the path.
+    # 1b. The checkpoint, under a temporary directory removed at exit.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    ckpt = os.path.join(tmp, "sd15")
     t0 = time.perf_counter()
-    pipe = SDPipeline.random_init("sd15", dtype=torch.bfloat16, device="cuda", seed=0)
+    rounded = write_checkpoint(ckpt)
     torch.cuda.synchronize()
-    print(f"[init] sd15 random weights in {time.perf_counter() - t0:.3f} s")
+    print(f"[ckpt] SD1.5-width HF-layout checkpoint (random weights, seed 0, F16) written in "
+          f"{time.perf_counter() - t0:.3f} s: {dir_bytes(ckpt)} bytes")
+
+    # 2. Load, against a pipeline built directly from the same weights; warm-up
+    # generation, which records every kernel input shape of the path.
+    t0 = time.perf_counter()
+    pipe = SDPipeline.from_pretrained(ckpt, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[load] from_pretrained of the checkpoint (bf16, on the card) in "
+          f"{time.perf_counter() - t0:.3f} s on {card}")
+    cfg = pipe.config
+    require((cfg.unet, cfg.vae, cfg.text) == (SD15.unet, SD15.vae, SD15.text),
+            f"the checkpoint's config is not SD1.5's: {cfg}")
+    require(isinstance(pipe.tokenizer, CLIPTokenizer), f"tokenizer {type(pipe.tokenizer)}")
+    direct = SDPipeline(SD15, rounded, tokenizer=pipe.tokenizer, dtype=torch.bfloat16,
+                        device="cuda")
+    del rounded
     latents = StackedRandomGenerator(range(BATCH), "cuda").randn((BATCH, 4, 64, 64)).permute(0, 2, 3, 1)
+    emb, emb_direct = pipe.encode_prompts(PROMPTS), direct.encode_prompts(PROMPTS)
+    x0 = pipe.generate_latents(latents, emb, init_timestep=INIT_TIMESTEP)
+    x0_direct = direct.generate_latents(latents, emb_direct, init_timestep=INIT_TIMESTEP)
+    same = torch.equal(emb, emb_direct) and torch.equal(x0, x0_direct)
+    print(f"[load] loaded vs built from the state dicts: embeddings and x0 bit-equal {same} (max "
+          f"|x0 diff| {(x0 - x0_direct).abs().max().item():.3e})")
+    require(same, "the loaded pipeline's x0 differs from the directly built one's")
+    del direct, emb_direct, x0_direct
+    torch.cuda.empty_cache()
     registry.reset()
     emb = pipe.encode_prompts(PROMPTS)
     x0 = pipe.generate_latents(latents, emb, init_timestep=INIT_TIMESTEP)
@@ -1584,6 +1883,18 @@ def main(argv=None) -> int:
     print(f"[tiny] card vs CPU: x0 max abs {x0_abs:.3e} (err/tol {x0_ratio:.3f}), "
           f"images max uint8 delta {img_delta}")
     require(x0_ratio <= 1.0 and img_delta <= 1, "tiny preset: card disagrees with the CPU")
+    pixels = torch.rand((2, 3, 16, 16), generator=torch.Generator().manual_seed(5)) * 2 - 1
+    with torch.inference_mode():
+        moments_cpu = cpu.vae.encode_moments(pixels)
+        registry.reset()
+        moments_card = card_tiny.vae.encode_moments(pixels.cuda())
+        enc_tiny = registry.counts()
+    for name, got, ref in zip(("mean", "logvar"), moments_card, moments_cpu):
+        m_abs, _, m_ratio, _ = close_errors(got.cpu(), ref, atol=5e-4, rtol=1e-3)
+        print(f"[tiny] encoder {name} card vs CPU: max abs {m_abs:.3e} (err/tol {m_ratio:.3f}); "
+              f"card launches {enc_tiny}")
+        require(m_ratio <= 1.0, f"tiny encoder {name}: card disagrees with the CPU")
+    require(enc_tiny["flash_attn_fwd"] == 1, "tiny encoder: K1 not launched on the card")
 
     # 5. Main path: counters zeroed, one generate, every kernel launched.
     registry.reset()
@@ -1621,11 +1932,15 @@ def main(argv=None) -> int:
     gn_tot = time_gn_keys(main_keys, gen, "serving batch")
     kernels += [gn_entry(name, launches[name], max_abs[name], gn_tot[name]) for name in GN_KERNELS]
 
-    del pipe, card_tiny, cpu
-    train_entries, train_keys, phase10 = train_phases(card, gen, keys)
+    del card_tiny, cpu
+    encode_phase(pipe, images, x0, gen, card)
+    corpus = encode_latents_phase(pipe, images, ckpt, tmp, card)
+    del pipe
+    torch.cuda.empty_cache()
+    train_entries, train_keys, phase10 = train_phases(card, gen, keys, ckpt, tmp)
     kernels += train_entries
     checked = {name: set(keys.get(name, ())) | set(train_keys[name]) for name in registry.KERNELS}
-    kernels.append(sida_phases(card, gen, checked, phase10))
+    kernels.append(sida_phases(card, gen, checked, phase10, ckpt, corpus))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

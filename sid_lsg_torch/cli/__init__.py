@@ -2,6 +2,7 @@
 
   python -m sid_lsg_torch.cli.generate_onestep ...   (one-step generation)
   python -m sid_lsg_torch.cli.sid_train ...          (distillation training)
+  python -m sid_lsg_torch.cli.encode_latents ...     (SiDA real-latent corpus)
 """
 
 import argparse

@@ -4,10 +4,13 @@ Port of ``sid_lsg_tpu/cli/generate_onestep.py`` for one process on one card:
 seeds map to caption indices, each seed's latents come from its own
 ``torch.Generator`` (the reference's ``StackedRandomGenerator``), images are
 written as ``{seed:06d}.png`` (optionally in thousand-seed subdirectories),
-and a ``_numstep{n}`` suffix marks multistep runs.  Weights are a preset's
-random initialisation; loading checkpoints is not ported yet.
+and a ``_numstep{n}`` suffix marks multistep runs.  ``--repo_id`` names an
+HF-layout checkpoint directory or a preset (random weights); ``--network``
+loads a distilled generator (a ``network-snapshot-*`` file of either package
+or of the reference).
 
-    python -m sid_lsg_torch.cli.generate_onestep --outdir out --seeds 0-63 --repo_id sd15
+    python -m sid_lsg_torch.cli.generate_onestep --outdir out --seeds 0-63 --repo_id <dir> \\
+        --network network-snapshot-1-000100.safetensors
 """
 
 from __future__ import annotations
@@ -88,6 +91,8 @@ def generate_images(pipe, captions: List[str], seeds: List[int], outdir: str,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="One-step SiD-LSG image generation (PyTorch port).")
+    p.add_argument("--network", dest="network_path", default=None,
+                   help="Generator checkpoint (.safetensors / reference .pkl / .pt / .bin)")
     p.add_argument("--outdir", required=True, help="Where to save images")
     p.add_argument("--seeds", default="0-63", help="Random seeds (e.g. 1,2,5-10); double as caption indices")
     p.add_argument("--subdirs", action="store_true", help="Subdirectory per 1000 seeds")
@@ -95,7 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num", dest="num_samples", type=int_range(1), default=30000, help="Maximum number of images")
     p.add_argument("--init_timestep", type=int_range(0, 999), default=625)
     p.add_argument("--text_prompts", default="prompts/captions.txt", help="Captions file")
-    p.add_argument("--repo_id", default="sd15", help="Model preset (sd15/sd21base/tiny), random weights")
+    p.add_argument("--repo_id", default="sd15",
+                   help="Base SD checkpoint dir, or a preset (sd15/sd21base/tiny) with random "
+                        "weights")
     p.add_argument("--use_bf16", type=parse_bool, default=True, help="bf16 activations")
     p.add_argument("--num_steps_eval", type=int_range(1), default=1)
     p.add_argument("--custom_seed", type=parse_bool, default=False, help="Map seed list positions to caption indices")
@@ -109,8 +116,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     seed_list = parse_int_list(args.seeds)[:args.num_samples]
     captions = read_prompt_file(args.text_prompts) if os.path.exists(args.text_prompts) else [""]
-    pipe = SDPipeline.random_init(args.repo_id, dtype=torch.bfloat16 if args.use_bf16 else torch.float32,
-                                  device=args.device)
+    pipe = SDPipeline.from_pretrained(args.repo_id,
+                                      dtype=torch.bfloat16 if args.use_bf16 else torch.float32,
+                                      device=args.device)
+    if args.network_path:
+        pipe.load_generator(args.network_path)
     print(f'Generating {len(seed_list)} images to "{args.outdir}"...', flush=True)
     generate_images(pipe, captions, seed_list, args.outdir, max_batch_size=args.max_batch_size,
                     init_timestep=args.init_timestep, num_steps_eval=args.num_steps_eval,

@@ -1,8 +1,11 @@
-"""PNG writer in pure Python (zlib + struct).
+"""PNG writer and reader in pure Python (zlib + struct).
 
-The format of the JAX package's native writer (``native/src/pngio.cpp``) for
-RGB images: 8-bit RGB, one IDAT of filter-0 scanlines, IEND, CRCs by
-zlib.crc32.
+The writer gives the format of the JAX package's native writer
+(``native/src/pngio.cpp``) for RGB images: 8-bit RGB, one IDAT of filter-0
+scanlines, IEND, CRCs by zlib.crc32.  The reader takes non-interlaced 8-bit
+grey, RGB and RGBA images with any of the five row filters and returns RGB,
+as Pillow's ``Image.open(path).convert("RGB")`` does (alpha dropped, grey
+repeated); any other PNG raises.
 """
 
 from __future__ import annotations
@@ -33,3 +36,81 @@ def encode_png(image: np.ndarray, compress_level: int = 1) -> bytes:
 def write_png(path: str, image: np.ndarray, compress_level: int = 1) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(image, compress_level))
+
+
+_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of (H, 1 + stride) scanlines -> (H, stride)."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # Sub: a running sum along each sample of the pixel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            cur = line + prev
+        elif kind in (3, 4):  # Average, Paeth: each byte needs the one bpp before it
+            raw, up, rec = line.tolist(), prev.tolist(), [0] * stride
+            for x in range(stride):
+                a = rec[x - bpp] if x >= bpp else 0
+                b = up[x]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[x - bpp] if x >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                rec[x] = (raw[x] + pred) & 0xFF
+            cur = np.array(rec, np.uint8)
+        else:
+            raise ValueError(f"PNG row {y} has filter type {kind}; 0-4 are defined")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if len(body) != n or pos + 12 + n > len(data):
+            raise ValueError(f"PNG chunk {kind!r} runs past the end of the file")
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if crc != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if header is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _CHANNELS or interlace != 0:
+        raise ValueError(f"PNG of bit depth {depth}, colour type {color}, interlace {interlace}: "
+                         "the reader takes non-interlaced 8-bit grey (0), RGB (2) and RGBA (6)")
+    ch = _CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * ch):
+        raise ValueError(f"PNG pixel data of {raw.size} bytes; {w}x{h}x{ch} needs "
+                         f"{h * (1 + w * ch)}")
+    img = _unfilter(raw.reshape(h, 1 + w * ch), ch).reshape(h, w, ch)
+    if ch == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])
+
+
+def read_png(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_png(f.read())

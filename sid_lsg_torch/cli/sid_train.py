@@ -29,7 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
     a = p.add_argument
     a("--outdir", required=True, help="Where to save the results")
     a("--data", default="", help="Prompt corpus file/dir (Aesthetics6+ txt)")
-    a("--sd_model", default="sd15", help="Teacher: preset (sd15/sd21base/tiny) or random:<preset>")
+    a("--sd_model", default="sd15",
+      help="Teacher: HF-layout checkpoint dir, or preset (sd15/sd21base/tiny) / random:<preset>")
     a("--prediction_type", choices=["epsilon", "v_prediction"], default=None)
     a("--duration", type=int, default=200000, help="Training duration (kimg)")
     a("--batch", type=int, default=512, help="Global batch size")
@@ -77,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--resolution", type=int, default=512)
     a("--metrics", default=None, help="Comma-separated metric names (not ported)")
     a("--metric_data", default=None)
-    a("--resume", default=None, help="(not ported)")
+    a("--resume", default=None,
+      help="Generator snapshot file that G, the EMA and psi start from ('latest' and run "
+           "directories: not ported)")
     a("--resume_kimg", type=int, default=0)
     a("--desc", default=None, help="Run-dir description suffix")
     a("--max-ticks", dest="max_ticks", type=int, default=None, help="Stop after N ticks")

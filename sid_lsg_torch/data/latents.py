@@ -9,7 +9,8 @@ files from one ``--dest foo.npz``:
 - ``foo.npz``: ``captions`` (N,) of the paired prompts (plus ``latents`` in
   hand-built fixtures without the sidecar; npz members cannot be mapped).
 
-Latents come out NHWC float32, as the files hold them.
+Latents come out NHWC float32, as the files hold them.  ``write_corpus``
+writes the two files (``cli/encode_latents``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,21 @@ import numpy as np
 def _sidecar_path(npz_path: str) -> str:
     root, _ = os.path.splitext(npz_path)
     return root + ".latents.npy"
+
+
+def write_corpus(dest: str, latents: np.ndarray, captions: List[str]) -> str:
+    """Write ``latents`` (N, h, w, c) as the f16 sidecar of ``dest`` and the
+    captions into ``dest``; returns the sidecar's path."""
+    if len(latents) != len(captions):
+        raise ValueError(f"{len(latents)} latents but {len(captions)} captions")
+    os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
+    sidecar = _sidecar_path(os.path.abspath(dest))
+    mm = np.lib.format.open_memmap(sidecar, mode="w+", dtype=np.float16, shape=latents.shape)
+    mm[:] = latents
+    mm.flush()
+    del mm
+    np.savez(dest, captions=np.array(captions))
+    return sidecar
 
 
 class LatentDataset:

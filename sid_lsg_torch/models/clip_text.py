@@ -58,13 +58,21 @@ class CLIPEncoderLayer(nn.Module):
         return x + self.mlp["fc2"](h)
 
 
+def _embedding(num: int, dim: int) -> nn.Embedding:
+    """An ``nn.Embedding`` left uninitialised: the port loads every weight
+    or draws it with ``layers.init_weights_``, and the default ``normal_`` on
+    the meta device (``pipeline._skeletons``) imports ``torch._dynamo``,
+    about 2.5 s at a process's first model."""
+    return nn.Embedding(num, dim, _weight=torch.empty(num, dim))
+
+
 class CLIPTextModel(nn.Module):
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
         self.config = config
         self.embeddings = nn.ModuleDict({
-            "token_embedding": nn.Embedding(config.vocab_size, config.hidden_size),
-            "position_embedding": nn.Embedding(config.max_position_embeddings, config.hidden_size),
+            "token_embedding": _embedding(config.vocab_size, config.hidden_size),
+            "position_embedding": _embedding(config.max_position_embeddings, config.hidden_size),
         })
         self.encoder = nn.ModuleDict({"layers": nn.ModuleList(
             [CLIPEncoderLayer(config) for _ in range(config.num_hidden_layers)])})

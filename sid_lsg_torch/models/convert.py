@@ -1,4 +1,9 @@
-"""Carry weights from the JAX package's parameter pytrees into port state dicts.
+"""Carry weights into port state dicts: from HF checkpoint files and from the
+JAX package's parameter pytrees.
+
+``load_sd_checkpoint(model_dir)`` reads an HF-layout checkpoint directory
+into the same state dicts (the JAX package's ``load_sd_checkpoint``): the
+checkpoint's keys are brought to the port's by ``normalise_state_dict``.
 
 ``params_from_jax(tree, config, part)`` takes one of the JAX package's
 parameter trees (``pipeline.params['unet' | 'vae' | 'text']``) as nested dicts
@@ -16,10 +21,13 @@ state dict of ``models.stylegan_discriminator.ProjectedDiscriminator``.
 
 from __future__ import annotations
 
+import os
+import re
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from .configs import CLIPTextConfig, SDConfig, UNetConfig, VAEConfig
 from .stylegan_discriminator import ViTConfig
@@ -125,13 +133,29 @@ def _unet(c: _Carry, cfg: UNetConfig) -> None:
     c.conv("conv_out", "conv_out")
 
 
-def _vae_decode(c: _Carry, cfg: VAEConfig) -> None:
+def _vae_mid(c: _Carry, part: str) -> None:
+    _resnet(c, f"{part}/mid_resnet_0", f"{part}.mid_block.resnets.0", temb=False)
+    c.norm(f"{part}/mid_attn/group_norm", f"{part}.mid_block.attentions.0.group_norm")
+    _attention(c, f"{part}/mid_attn/attn", f"{part}.mid_block.attentions.0", qkv_bias=True)
+    _resnet(c, f"{part}/mid_resnet_1", f"{part}.mid_block.resnets.1", temb=False)
+
+
+def _vae(c: _Carry, cfg: VAEConfig) -> None:
     n = len(cfg.block_out_channels)
+    c.conv("encoder/conv_in", "encoder.conv_in")
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            _resnet(c, f"encoder/down_{i}_resnet_{j}", f"encoder.down_blocks.{i}.resnets.{j}",
+                    temb=False)
+        if i < n - 1:
+            c.conv(f"encoder/down_{i}_downsample/conv",
+                   f"encoder.down_blocks.{i}.downsamplers.0.conv")
+    _vae_mid(c, "encoder")
+    c.norm("encoder/conv_norm_out", "encoder.conv_norm_out")
+    c.conv("encoder/conv_out", "encoder.conv_out")
+    c.conv("quant_conv", "quant_conv")
     c.conv("decoder/conv_in", "decoder.conv_in")
-    _resnet(c, "decoder/mid_resnet_0", "decoder.mid_block.resnets.0", temb=False)
-    c.norm("decoder/mid_attn/group_norm", "decoder.mid_block.attentions.0.group_norm")
-    _attention(c, "decoder/mid_attn/attn", "decoder.mid_block.attentions.0", qkv_bias=True)
-    _resnet(c, "decoder/mid_resnet_1", "decoder.mid_block.resnets.1", temb=False)
+    _vae_mid(c, "decoder")
     for i in range(n):
         for j in range(cfg.layers_per_block + 1):
             _resnet(c, f"decoder/up_{i}_resnet_{j}", f"decoder.up_blocks.{i}.resnets.{j}",
@@ -158,18 +182,103 @@ def _clip_text(c: _Carry, cfg: CLIPTextConfig) -> None:
     c.ln("final_layer_norm", "final_layer_norm")
 
 
+def unet_params_from_jax(tree: dict, config: UNetConfig) -> Dict[str, torch.Tensor]:
+    """JAX UNet parameter tree -> port UNet state dict (f32)."""
+    c = _Carry(tree)
+    _unet(c, config)
+    return c.sd
+
+
 def params_from_jax(tree: dict, config: SDConfig, part: str) -> Dict[str, torch.Tensor]:
     """JAX parameter tree of ``part`` ('unet' | 'vae' | 'text') -> port state dict (f32)."""
-    c = _Carry(tree)
     if part == "unet":
-        _unet(c, config.unet)
-    elif part == "vae":
-        _vae_decode(c, config.vae)
+        return unet_params_from_jax(tree, config.unet)
+    c = _Carry(tree)
+    if part == "vae":
+        _vae(c, config.vae)
     elif part == "text":
         _clip_text(c, config.text)
     else:
         raise ValueError(f"unknown part {part!r}; expected 'unet', 'vae' or 'text'")
     return c.sd
+
+
+# ---------------------------------------------------------------------------
+# HF-layout checkpoint files
+
+StateDict = Dict[str, torch.Tensor]
+
+# The VAE mid attention's older diffusers names (the published SD1.5 VAE file).
+_LEGACY_VAE_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+_LEGACY_VAE_KEY = re.compile(r"^(.*\.attentions\.\d+)\.(query|key|value|proj_attn)\.(weight|bias)$")
+
+
+def normalise_state_dict(sd: StateDict, part: str) -> StateDict:
+    """A checkpoint's state dict of ``part`` -> the port's keys, in f32: the
+    text tower's ``text_model.`` prefix stripped, the VAE attention's
+    ``query``/``key``/``value``/``proj_attn`` renamed where its ``to_q`` is
+    absent, and the ``position_ids`` buffers (which no module reads) dropped.
+    Every other key is kept, so a strict load names what does not fit."""
+    out: StateDict = {}
+    for key, value in sd.items():
+        if part == "text" and key.startswith("text_model."):
+            key = key[len("text_model."):]
+        if key.endswith("position_ids"):
+            continue
+        m = _LEGACY_VAE_KEY.match(key) if part == "vae" else None
+        if m and f"{m.group(1)}.to_q.weight" not in sd:
+            key = f"{m.group(1)}.{_LEGACY_VAE_ATTN[m.group(2)]}.{m.group(3)}"
+        if key in out:
+            raise KeyError(f"{part}: two checkpoint keys map to {key}")
+        out[key] = value.float()
+    return out
+
+
+def check_state_dict(sd: StateDict, module: nn.Module, what: str) -> None:
+    """Raise unless ``sd`` has exactly ``module``'s keys at its shapes."""
+    want = module.state_dict()
+    missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"{what}: missing keys {missing[:5]} ({len(missing)}), unexpected keys "
+                       f"{extra[:5]} ({len(extra)})")
+    bad = [k for k, v in want.items() if tuple(sd[k].shape) != tuple(v.shape)]
+    if bad:
+        raise ValueError(f"{what}: {bad[0]} has shape {tuple(sd[bad[0]].shape)}, the model "
+                         f"{tuple(want[bad[0]].shape)} ({len(bad)} such keys)")
+
+
+_WEIGHT_FILES = ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                 "diffusion_pytorch_model.bin", "pytorch_model.bin")
+
+
+def _find_weights(subdir: str) -> str:
+    for name in _WEIGHT_FILES:
+        path = os.path.join(subdir, name)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no weight file under {subdir} (looked for "
+                            f"{', '.join(_WEIGHT_FILES)})")
+
+
+def _load_weights(path: str) -> StateDict:
+    from ..runtime.checkpoint import read_safetensors
+
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v for k, v in obj.items() if torch.is_tensor(v)}
+
+
+def load_sd_checkpoint(model_dir: str) -> Dict[str, StateDict]:
+    """An HF-layout checkpoint directory (``unet/``, ``vae/``,
+    ``text_encoder/``) -> the port's state dicts ``{'unet', 'vae', 'text'}``
+    (CPU, f32), keys normalised by ``normalise_state_dict``."""
+    subdirs = {"unet": "unet", "vae": "vae", "text": "text_encoder"}
+    return {part: normalise_state_dict(_load_weights(_find_weights(os.path.join(model_dir, sub))),
+                                       part)
+            for part, sub in subdirs.items()}
 
 
 def _dino(c: _Carry, cfg: ViTConfig) -> None:

@@ -207,13 +207,18 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3x3 conv with symmetric padding 1 (the UNet's downsampler)."""
+    """Stride-2 3x3 conv: padding 1 on every side (the UNet's downsampler),
+    or with ``asymmetric_pad`` (the VAE encoder's) padding 0 before and 1
+    after on H and W."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, asymmetric_pad: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.asymmetric_pad = asymmetric_pad
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0 if asymmetric_pad else 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.asymmetric_pad:
+            x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
 

@@ -7,9 +7,14 @@ once per batch (frozen tower), tick-cadenced console / ``log.txt`` /
 ``stats_{alpha}.jsonl`` reporting, fixed-seed sample grids
 ``fakes_{alpha:03f}_{kimg:06d}_{steps}.png`` and safetensors EMA snapshots.
 
-Weights: a preset name or ``random:<preset>`` gives random weights from
-``seed``.  What is not ported yet is refused when the ``Trainer`` is built,
-each with the ROADMAP item that brings it: checkpoint loading, resume,
+Weights: ``model`` names an HF-layout checkpoint directory, or a preset /
+``random:<preset>`` for random weights from ``seed``
+(``pipeline.load_pretrained``); the teacher, G and psi start from its UNet.
+``resume`` names a generator file (``runtime.checkpoint.load_generator_params``):
+G, the EMA and a full-UNet psi each start from their own copy of it, a LoRA
+psi keeps its factors and the pixel judge its heads.  What is not ported yet
+is refused when the ``Trainer`` is built, each with the ROADMAP item that
+brings it: resuming a training state (``latest`` or a run directory),
 metrics, ``fsdp > 1``, orbax state dumps (which would also carry the
 spectral ``u`` vectors of the SiDA pixel judge) and profiler traces.
 
@@ -40,7 +45,6 @@ from ..data.prompts import InfinitePromptIterator, PromptDataset
 from ..device import resolve_device
 from ..diffusion.rng import StackedRandomGenerator
 from ..diffusion.sampling import sid_sampler
-from ..models.configs import PRESETS, resolve
 from ..models.stylegan_discriminator import (
     DINO_VIT_S16,
     TINY_VIT,
@@ -52,8 +56,8 @@ from ..models.stylegan_discriminator import (
     spectral_buffers,
 )
 from ..models.unet import unet_apply_fn
-from ..pipeline import SDPipeline, random_state_dicts
-from ..runtime.checkpoint import export_generator
+from ..pipeline import SDPipeline, load_pretrained
+from ..runtime.checkpoint import export_generator, load_generator_params
 from ..utils import training_stats
 from ..utils.util import EasyDict, format_time
 from .adversarial import make_pixel_disc
@@ -72,7 +76,7 @@ class TrainConfig:
 
     run_dir: str = "."
     data: str = ""  # prompt corpus path (file or dir)
-    model: str = "sd15"  # preset, random:<preset> (checkpoint dirs: not ported)
+    model: str = "sd15"  # checkpoint directory, preset or random:<preset>
     prediction_type: Optional[str] = None
     resolution: int = 512
     batch_size: int = 512
@@ -143,12 +147,12 @@ def last_tick(cfg: TrainConfig) -> int:
 
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise ``ValueError`` for an option whose feature is not ported yet."""
-    model = cfg.model[len("random:"):] if cfg.model.startswith("random:") else cfg.model
+    resume_state = cfg.resume == "latest" or (
+        cfg.resume is not None and os.path.isdir(os.path.join(cfg.resume, "checkpoints")))
     checks = [
-        (model not in PRESETS,
-         f"model {cfg.model!r}: loading checkpoints (HF directories) is not ported yet (ROADMAP "
-         f"Queue 1 item 4); pass a preset {sorted(PRESETS)} or random:<preset>"),
-        (cfg.resume is not None, "resume is not ported yet (ROADMAP Queue 1 item 5)"),
+        (resume_state,
+         f"resume {cfg.resume!r}: resuming a training state is not ported yet (ROADMAP Queue 1 "
+         f"item 5); pass a generator snapshot file"),
         (bool(cfg.metrics), "metrics during training are not ported yet (ROADMAP Queue 1 item 7)"),
         (cfg.fsdp > 1, "fsdp > 1 (torch.distributed) is not ported yet (ROADMAP Queue 1 item 5)"),
         (cfg.state_dump_ticks > 0 and last_tick(cfg) >= cfg.state_dump_ticks,
@@ -190,13 +194,17 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
-        preset = cfg.model[len("random:"):] if cfg.model.startswith("random:") else cfg.model
-        sd_cfg = resolve(preset)
-        sds = random_state_dicts(sd_cfg, self.device, cfg.seed)
-        self.pipe = SDPipeline(sd_cfg, sds, dtype=dtype, device=self.device,
+        # What SDPipeline.from_pretrained builds, keeping the f32 UNet.
+        sd_cfg, sds, tokenizer = load_pretrained(cfg.model, self.device, cfg.seed)
+        self.pipe = SDPipeline(sd_cfg, sds, tokenizer=tokenizer, dtype=dtype, device=self.device,
                                prediction_type=cfg.prediction_type)
-        unet_f32 = sds.pop("unet")
+        unet_f32 = {k: v.to(self.device) for k, v in sds.pop("unet").items()}
         del sds
+        # G's (and the EMA's and a full psi's) starting weights.
+        g_init = unet_f32
+        if cfg.resume is not None:
+            g_init = {k: v.to(self.device)
+                      for k, v in load_generator_params(cfg.resume, sd_cfg.unet).items()}
         self.a_rounds = cfg.batch_size // cfg.microbatch
         self.dcfg = DistillConfig(
             latent_size=sd_cfg.unet.sample_size, latent_channels=sd_cfg.unet.in_channels,
@@ -229,13 +237,14 @@ class Trainer:
             self.disc = self._build_disc(sd_cfg.unet.cross_attention_dim)
             pixel_disc = make_pixel_disc(self.pipe.vae, self.disc, sd_cfg.vae.scaling_factor)
             # psi and the judge's heads share psi's optimizer.
-            params_fake_init = {**(unet_f32 if params_fake_init is None else params_fake_init),
+            params_fake_init = {**(g_init if params_fake_init is None else params_fake_init),
                                 **{DISC_PREFIX + k: v for k, v in head_params(self.disc).items()}}
         # The state holds the three trainables (f32 masters); the teacher
         # stays a separate frozen dict.
-        self.state: SiDState = init_state(unet_f32, self.opt_g, self.opt_fake,
+        self.state: SiDState = init_state(g_init, self.opt_g, self.opt_fake,
                                           resume_nimg=cfg.resume_kimg * 1000,
                                           params_fake=params_fake_init)
+        del g_init
         if cfg.teacher_bf16 and not cfg.use_bf16:
             print("WARNING: --teacher-bf16 with f32 compute (--bf16 0) quantizes the frozen "
                   "teacher and DOES change numerics; it is numerically free only under bf16 "

@@ -72,8 +72,9 @@ def _nhwc(x):
 def _perturb(tree, seed, scale=0.1):
     rs = np.random.RandomState(seed)
     leaves, treedef = jax.tree_util.tree_flatten(tree)
-    leaves = [np.asarray(v, np.float32) + scale * (np.std(v) + 0.5)
-              * rs.standard_normal(np.shape(v)).astype(np.float32) for v in leaves]
+    leaves = [np.asarray(v, np.float32) for v in leaves]  # numpy's std: no JAX op per shape
+    leaves = [v + scale * (np.std(v) + 0.5) * rs.standard_normal(v.shape).astype(np.float32)
+              for v in leaves]
     return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
@@ -327,10 +328,23 @@ def _psi_both(s, tw, tower, x):
     return loss, aux, grads, jloss, jaux, ref
 
 
+@pytest.fixture(scope="module")
+def psi_clean(s, towers):
+    """Per tower, ``_psi_both`` on the clean inputs, computed once for the
+    tests that read it."""
+    cache = {}
+
+    def get(tower):
+        if tower not in cache:
+            cache[tower] = _psi_both(s, towers[tower], tower, _inputs())
+        return cache[tower]
+
+    return get
+
+
 @pytest.mark.parametrize("tower", ["encoder", "dino"])
-def test_psi_loss_with_adversarial_term_matches_jax(s, towers, tower):
-    x = _inputs()
-    loss, aux, grads, jloss, jaux, ref = _psi_both(s, towers[tower], tower, x)
+def test_psi_loss_with_adversarial_term_matches_jax(psi_clean, tower):
+    loss, aux, grads, jloss, jaux, ref = psi_clean(tower)
     for k in ("adv_d_loss", "d_logit_real", "d_logit_fake"):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=LOSS_RTOL, atol=1e-6, err_msg=k)
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=LOSS_RTOL)
@@ -362,14 +376,13 @@ def test_g_loss_with_adversarial_term_matches_jax(s, towers, tower):
     _assert_grads(grads, export_unet(jgrads, jconfigs.TINY.unet), f"g {tower}")
 
 
-def test_nan_real_row_is_excluded_like_jax(s, towers):
+def test_nan_real_row_is_excluded_like_jax(s, towers, psi_clean):
     """A NaN real-latent row costs only its own d-loss term: the loss and
     every gradient agree with JAX, stay finite, and the adversarial loss
     drops below the clean one."""
-    clean = _inputs()
     bad = _inputs()
     bad.lat_real[0] = np.nan
-    loss_c, aux_c, _, _, _, _ = _psi_both(s, towers["encoder"], "encoder", clean)
+    loss_c, aux_c, _, _, _, _ = psi_clean("encoder")
     loss, aux, grads, jloss, jaux, ref = _psi_both(s, towers["encoder"], "encoder", bad)
     assert all(np.isfinite(float(aux[k])) for k in ("adv_d_loss", "d_logit_real", "d_logit_fake"))
     assert float(aux["loss"]) == pytest.approx(float(aux_c["loss"]), rel=1e-6)

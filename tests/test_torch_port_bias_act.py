@@ -45,8 +45,12 @@ def _t(x):
 
 def _perturb(tree, seed, scale=0.1):
     rs = np.random.RandomState(seed)
-    return jax.tree_util.tree_map(lambda v: np.asarray(v, np.float32) + scale * (
-        np.std(v) + 0.5) * rs.standard_normal(np.shape(v)).astype(np.float32), tree)
+
+    def shift(v):
+        v = np.asarray(v, np.float32)  # numpy's std: no JAX op to compile per shape
+        return v + scale * (np.std(v) + 0.5) * rs.standard_normal(v.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map(shift, tree)
 
 
 @pytest.mark.parametrize("dim", [1, -1])

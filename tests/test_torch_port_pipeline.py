@@ -74,13 +74,18 @@ def test_generate_matches_jax_pipeline(port_pipe, jax_params):
 
 
 def test_port_imports_without_jax():
+    """The port imports with the JAX package and what the card's machine
+    lacks (``regex``, ``PIL``, ``safetensors``) blocked."""
+    blocked = ("jax", "flax", "sid_lsg_tpu", "regex", "PIL", "safetensors")
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'sid_lsg_tpu'):\n"
-        "    sys.modules[name] = None\n"
+        f"for name in {blocked!r}:\n"
+        f"    sys.modules[name] = None\n"
         "import sid_lsg_torch, sid_lsg_torch.pipeline, sid_lsg_torch.ops, sid_lsg_torch.models\n"
-        "import sid_lsg_torch.cli.generate_onestep\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sid_lsg_tpu')\n"
+        "import sid_lsg_torch.cli.generate_onestep, sid_lsg_torch.cli.encode_latents\n"
+        "import sid_lsg_torch.cli.sid_train, sid_lsg_torch.training.loop\n"
+        "import sid_lsg_torch.models.tokenizer, sid_lsg_torch.runtime.checkpoint\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )

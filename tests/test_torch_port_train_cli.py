@@ -90,7 +90,6 @@ def test_training_modules_import_without_jax():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("model", "/some/hf/checkpoint", "item 4"),
     ("resume", "latest", "item 5"),
     ("metrics", ["fid30k_full"], "item 7"),
     ("fsdp", 4, "item 5"),
