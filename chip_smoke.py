@@ -19,8 +19,10 @@ seed, loaded from an HF-layout checkpoint that it writes first, through the
 CUDA kernels built from ``sid_lsg_torch/csrc``: one-step text-to-image
 generation (batch 4, 512x512, init_timestep 625; phases 2-6), the VAE
 encode and ``encode_latents`` (phases 6a-6b), the SiD-LSG distillation train
-step (phases 7-11, with ``load_generator`` and ``--resume`` in 10a) and the
-SiDA adversarial train step on the encoded corpus (phases 12-16).
+step (phases 7-11, with ``load_generator`` and ``--resume`` in 10a), the
+SiDA adversarial train step on the encoded corpus (phases 12-16), the
+training loop as users run it with a state dump, the profiler and resume
+(phases 17-18) and the metrics (phase 19).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time,
    the card's name and power limit, the registers and spills of K1's, K4's,
@@ -52,7 +54,9 @@ SiDA adversarial train step on the encoded corpus (phases 12-16).
    f32 at the JAX package's parity shapes (``tests/test_pallas_parity.py``:
    standard-normal q, k, v; K4 on the gradients of sum(sin(out))): err/tol
    printed at its tolerances (forward atol 2e-5 / rtol 1e-4, gradients atol
-   5e-5 / rtol 1e-3), held to the f32 gate above.
+   5e-5 / rtol 1e-3), held to the f32 gate above.  K1 in f32 at the metric
+   stack's CLIP towers, (16, 16, 257, 88) (ViT-g/14) and (16, 16, 257, 80)
+   (ViT-H/14), held to the same f32 gate.
 4. Small reference: the tiny preset on the card (kernels) against the same
    weights on the CPU (plain versions), f32: x0 within atol 5e-4 /
    rtol 1e-3, images within one uint8 step; the VAE encoder's mean and
@@ -176,6 +180,36 @@ SiDA adversarial train step on the encoded corpus (phases 12-16).
    K4 beside them; the GroupNorm kernels at the step's keys, summed over one
    SiDA step.
 
+17. The loop: ``python -m sid_lsg_torch.cli.sid_train``'s ``main`` with
+   ``TRAIN_ARGS`` plus ``--tick 0 --max-ticks 6 --dump 5 --profile-dir``
+   (the checkpoint of phase 1b, run dir and trace under the temporary
+   directory, whose free space must hold the dump: G, psi, the EMA and both
+   Adam moments in f32); seven steps, one a tick, the state dumped at tick 5
+   (after step 6), the steps from there on under SIDLSG_FLASH_BWD=twopass;
+   the trace of steps 2-4 must name a K1 and a K4 kernel; the dump's bytes
+   and write seconds and the losses of the step after it printed.
+18. Resume: phase 17's trainer freed, ``--resume <run dir> --max-ticks 0``
+   takes one step: before it, every tensor, ``step``, ``nimg``, the step
+   generator's and the prompt iterator's states must equal the dump bit for
+   bit; the step's batch (the prompt iterator's state and the generator state
+   its noise and t come from) must equal phase 17's seventh step's bit for
+   bit and its losses within rtol 1e-4; the read seconds printed.  Then a
+   ``Trainer`` with ``--nosubdir --resume latest`` in the run dir restores the
+   same step, bit for bit.
+19. Metrics at full width on random detector weights: a COCO-layout folder of
+   16 PNG + caption pairs at 512x512 from phase 5's images (LANCZOS to the
+   eval resolution 256); ``calc_metric`` of ``fid_clip_test``, ``pr_test`` and
+   ``hpsv2`` (4 styles x 2 prompts) with the checkpoint's pipeline sampling
+   phase 10a's snapshot (``load_generator``), InceptionV3, and
+   ``CLIPScorer(VIT_G_14)`` (``CLIPScorer(VIT_H_14)`` for hpsv2): finite
+   results, K1 launched at head dim 88 and 80, K1 checked against its plain
+   version at every ViT shape the metrics launched; seconds per metric,
+   Inception and CLIP images/s, K1 at the ViT shapes beside its bound and
+   SDPA; ``python -m sid_lsg_torch.cli.sid_metrics --metrics fid_test`` in a
+   process of its own (``metric-fid_test.jsonl`` finite); a ``Trainer`` with
+   ``metrics=["fid_test"]`` and snapshot and metric ticks of 1 writes its
+   line at tick 1.
+
 Any failure raises and exits non-zero.  The last line is the result object.
 """
 
@@ -228,8 +262,8 @@ GN_KERNELS = ("gn_fused", "gn_stats", "gn_apply")
 BWD_KERNELS = ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 # The training path: `python -m sid_lsg_torch.cli.sid_train` with these flags
 # (the paper's kappa = 1.5, remat `flash`); --max-ticks 1 keeps the schedule
-# short of a state dump, which the port refuses.  `--sd_model` becomes the
-# phase-1b checkpoint (`with_flag`).
+# short of a state dump (--dump 500).  `--sd_model` becomes the phase-1b
+# checkpoint (`with_flag`).
 TRAIN_ARGS = ["--outdir", "chiprun_out/train", "--sd_model", "sd15", "--batch", "4",
               "--batch-micro", "4", "--cfg_train_fake", "1.5", "--cfg_eval_fake", "1.5",
               "--cfg_eval_real", "1.5", "--init_timestep", "625", "--bf16", "1", "--grad-ckpt", "1",
@@ -243,6 +277,18 @@ TWOPASS_STEPS = 3  # timed steps of the same trainer under SIDLSG_FLASH_BWD=twop
 SIDA_ARGS = TRAIN_ARGS + ["--adv_weight_d", "0.1", "--adv_weight_g", "0.1", "--adv_tower", "dino",
                           "--adv_vit", "s16"]
 SIDA_BATCH = TRAIN_BATCH
+# Phase 17: the loop as users run it, one step a tick, a state dump at tick 5
+# (after step 6) and a profiler trace of steps 2-4; the steps from the dump on
+# (phase 17's seventh, phase 18's resumed one) run SIDLSG_FLASH_BWD=twopass.
+LOOP_ARGS = ["--tick", "0", "--max-ticks", "6", "--dump", "5"]
+DUMP_STEP = 6
+# Phase 3 and 19: K1 in f32 at the CLIP towers of the metric stack, batch 16
+# (ViT-g/14: head dim 88; the HPSv2 ViT-H/14: 80; 257 tokens).
+VIT_K1_KEYS = [((16, 16, 257, d), (16, 16, 257, d), "torch.float32") for d in (88, 80)]
+HPS_STYLES = {"photo": ["a photo of a red barn", "a photo of two cats on a sofa"],
+              "anime": ["an anime girl under cherry trees", "an anime robot in the rain"],
+              "concept-art": ["concept art of a desert city", "concept art of a sky whale"],
+              "paintings": ["an oil painting of a harbour", "a watercolour of a mountain lake"]}
 TOL_LOSS = 1e-4  # phase 9: relative, losses
 TOL_GRAD = 1e-3  # phase 9: relative, and 1e-4 * max|ref| absolute, per gradient tensor
 
@@ -1779,6 +1825,311 @@ def sida_phases(card: str, gen, checked, phase10, ckpt: str, corpus: str) -> dic
             "library_host_us": tot["library_host_us"] / calls}
 
 
+def _step_recorder(records: list, saves: list, restores: list):
+    """Patches of ``Trainer.step``, ``save_state`` and ``restore_from`` that
+    record, per step, the state number, the step generator's and the prompt
+    iterator's states before it and the losses after it (from the dump's step
+    on under SIDLSG_FLASH_BWD=twopass), and time each dump and restore."""
+    import torch
+
+    from sid_lsg_torch.training.loop import Trainer
+
+    orig = (Trainer.step, Trainer.save_state, Trainer.restore_from)
+
+    def step(self):
+        if self.state.step >= DUMP_STEP:
+            os.environ["SIDLSG_FLASH_BWD"] = "twopass"
+        rec = {"step": self.state.step, "rng": self.generator.get_state().clone(),
+               "prompts": self.prompts.state_dict()}
+        metrics = orig[0](self)
+        rec["losses"] = {k: float(metrics[k]) for k in ("fake_score_loss", "g_loss")}
+        records.append(rec)
+        return metrics
+
+    def save_state(self, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = orig[1](self, step)
+        saves.append((path, time.perf_counter() - t0))
+        return path
+
+    def restore_from(self, mgr, step=None):
+        t0 = time.perf_counter()
+        orig[2](self, mgr, step)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+
+    Trainer.step, Trainer.save_state, Trainer.restore_from = step, save_state, restore_from
+
+    def undo():
+        Trainer.step, Trainer.save_state, Trainer.restore_from = orig
+        os.environ.pop("SIDLSG_FLASH_BWD", None)
+
+    return undo
+
+
+def unequal_to_dump(tree, dumped, path="") -> list:
+    """Paths where the live tree differs from the dump, bit for bit."""
+    import torch
+
+    if isinstance(tree, dict):
+        if set(tree) != set(dumped):
+            return [f"{path}: keys {sorted(set(tree) ^ set(dumped))[:4]}"]
+        return [p for k in tree for p in unequal_to_dump(tree[k], dumped[k], f"{path}/{k}")]
+    if torch.is_tensor(tree):
+        same = tree.shape == dumped.shape and torch.equal(tree.detach().cpu(), dumped)
+        return [] if same else [path]
+    return [] if tree == dumped else [path]
+
+
+def loop_phases(card: str, ckpt: str, tmp: str) -> None:
+    """Phases 17-18: ``sid_train`` with a state dump and the profiler, then
+    the run resumed from its run dir and with ``--resume latest``."""
+    import gc
+
+    import torch
+
+    from sid_lsg_torch.cli import sid_train
+    from sid_lsg_torch.runtime.checkpoint import CheckpointManager
+    from sid_lsg_torch.training.loop import Trainer, resume_training_state
+
+    # 17. The loop with a dump and a profiler trace.
+    run_root, prof_dir = os.path.join(tmp, "loop"), os.path.join(tmp, "profile")
+    args = with_flag(with_flag(TRAIN_ARGS, "--sd_model", ckpt), "--outdir", run_root)
+    for flag, value in zip(LOOP_ARGS[::2], LOOP_ARGS[1::2]):
+        args = with_flag(args, flag, value)
+    unet_f16 = os.path.getsize(os.path.join(ckpt, "unet", "diffusion_pytorch_model.safetensors"))
+    need = 7 * 2 * unet_f16  # f32 G, psi, EMA and both optimizers' mu and nu
+    free = shutil.disk_usage(tmp).free
+    print(f"[dump] {tmp}: {free} bytes free; the dump needs about {need} bytes")
+    require(free > 1.05 * need, f"{tmp} holds {free} free bytes; the state dump needs about {need} "
+                                f"(G, psi, EMA and both Adam moments of the SD1.5 UNet in f32)")
+    records, saves, restores = [], [], []
+    undo = _step_recorder(records, saves, restores)
+    try:
+        t0 = time.perf_counter()
+        state = sid_train.main(args + ["--profile-dir", prof_dir])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        undo()
+    (run_dir,) = [os.path.join(run_root, n) for n in os.listdir(run_root)]
+    require(state.step == DUMP_STEP + 1 and len(records) == DUMP_STEP + 1,
+            f"the loop took {state.step} steps ({len(records)} recorded), not {DUMP_STEP + 1}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    (dump_path, write_s), = saves
+    dump_bytes = os.path.getsize(dump_path)
+    require(CheckpointManager(os.path.join(run_dir, "checkpoints")).all_steps() == [DUMP_STEP]
+            and dump_path.endswith(os.path.join(str(DUMP_STEP), "state.pt")),
+            f"dump {dump_path} is not the one of step {DUMP_STEP}")
+    traces = os.listdir(prof_dir)
+    require(len(traces) == 1, f"profiler traces {traces}")
+    trace_path = os.path.join(prof_dir, traces[0])
+    found = {"K1": False, "K4": False}
+    with open(trace_path, errors="replace") as f:
+        for chunk in iter(lambda: f.read(1 << 24), ""):
+            found["K1"] |= "fwd_bf16_wgmma" in chunk
+            found["K4"] |= "bwd_bf16_wgmma" in chunk
+    after = records[DUMP_STEP]["losses"]
+    print(f"[loop] sid_train, {len(records)} steps (one a tick), in {run_s:.3f} s; dump of step "
+          f"{DUMP_STEP}: {dump_bytes} bytes written in {write_s:.3f} s; profiler trace of steps "
+          f"2-4 {os.path.getsize(trace_path)} bytes, K1 and K4 kernels named {found}; losses of "
+          f"the step after the dump (twopass) {after}; on {card}")
+    require(all(found.values()), f"the profiler trace names no K1 or K4 launch: {found}")
+    require(all(math.isfinite(x) for r in records for x in r["losses"].values()),
+            "the loop's losses are not finite")
+
+    # 18. Resume: the run dir's dump, one step, against the uninterrupted run.
+    dumped = torch.load(dump_path, map_location="cpu", weights_only=True, mmap=True)
+    checked = {}
+    resumed_records = []
+    undo = _step_recorder(resumed_records, [], restores)
+    try:
+        step = Trainer.step
+
+        def step_after_check(self):
+            if not checked:
+                checked["bad"] = unequal_to_dump(self._ckpt_tree(), dumped)
+            return step(self)
+
+        Trainer.step = step_after_check
+        resumed = sid_train.main(with_flag(with_flag(args, "--outdir", os.path.join(tmp, "resumed")),
+                                           "--max-ticks", "0") + ["--resume", run_dir])
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    require(resumed.step == DUMP_STEP + 1, f"the resumed run ended at step {resumed.step}")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    (read_s,) = restores
+    want, got = records[DUMP_STEP], resumed_records[0]
+    same_batch = (got["step"] == want["step"] and torch.equal(got["rng"], want["rng"])
+                  and not unequal_to_dump(got["prompts"], want["prompts"]))
+    rel = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30) for k, v in want["losses"].items()}
+    print(f"[resume] --resume <run dir>: dump read in {read_s:.3f} s; tensors, step, nimg, "
+          f"generator and iterator states unequal to the dump: {checked['bad'] or 'none'}; next "
+          f"batch (prompts, generator state for noise and t) bit-equal {same_batch}; losses "
+          f"{got['losses']} against the uninterrupted run's {want['losses']}, relative "
+          f"{rel} (<= {TOL_LOSS}); on {card}")
+    require(not checked["bad"], f"the restored state differs from the dump at {checked['bad'][:5]}")
+    require(same_batch, "the resumed step's batch differs from the uninterrupted run's")
+    require(all(r <= TOL_LOSS for r in rel.values()), f"resumed losses differ: {rel}")
+    cfg = sid_train.config_from_args(sid_train.build_parser().parse_args(
+        with_flag(args, "--outdir", run_dir) + ["--nosubdir", "--resume", "latest"]))
+    cfg.run_dir = run_dir  # what --nosubdir makes of --outdir
+    trainer = Trainer(cfg)
+    resume_training_state(trainer)
+    latest_step = trainer.state.step
+    bad = unequal_to_dump(trainer._ckpt_tree()["state"], dumped["state"])
+    print(f"[resume] --resume latest in the run dir: step {latest_step}, tensors unequal to the "
+          f"dump {bad or 'none'}")
+    require(latest_step == DUMP_STEP and not bad, "--resume latest did not find the dump")
+    del trainer, dumped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def write_coco_folder(images, root: str) -> None:
+    """Phase 19's eval set: 16 PNG + caption pairs at 512x512, the four
+    generated images as they are, mirrored, flipped and turned."""
+    from sid_lsg_torch.cli.pngio import write_png
+
+    os.makedirs(root, exist_ok=True)
+    host = images.cpu().numpy()
+    views = {"": lambda a: a, " (mirrored)": lambda a: a[:, ::-1], " (flipped)": lambda a: a[::-1],
+             " (turned)": lambda a: a[::-1, ::-1]}
+    for v, (suffix, fn) in enumerate(views.items()):
+        for i, img in enumerate(host):
+            name = f"{v * len(host) + i:03d}"
+            write_png(os.path.join(root, name + ".png"), fn(img).copy())
+            with open(os.path.join(root, name + ".txt"), "w", encoding="utf-8") as f:
+                f.write(PROMPTS[i] + suffix)
+
+
+def metric_phases(card: str, gen, ckpt: str, tmp: str, images) -> None:
+    """Phase 19: the metrics at full width on random detector weights."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from sid_lsg_torch.cli import sid_train
+    from sid_lsg_torch.metrics import MetricOptions, calc_metric
+    from sid_lsg_torch.metrics.detectors import inception_detector
+    from sid_lsg_torch.models.clip_vision import VIT_G_14, VIT_H_14, CLIPScorer
+    from sid_lsg_torch.ops import registry
+    from sid_lsg_torch.pipeline import SDPipeline
+    from sid_lsg_torch.training.loop import Trainer
+
+    coco = os.path.join(tmp, "coco")
+    write_coco_folder(images, coco)
+    snapshot = os.path.join(tmp, "network-snapshot-1-000000.safetensors")  # phase 10a's
+    pipe = SDPipeline.from_pretrained(ckpt, dtype=torch.bfloat16, device="cuda")
+    pipe.load_generator(snapshot)
+    inception = inception_detector(device="cuda")
+    t0 = time.perf_counter()
+    clip_g = CLIPScorer(VIT_G_14, device="cuda", seed=0)
+    clip_h = CLIPScorer(VIT_H_14, device="cuda", seed=1)
+    torch.cuda.synchronize()
+    print(f"[metrics] CLIP ViT-g/14 and ViT-H/14 scorers (random weights) built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    opts = MetricOptions(pipe=pipe, dataset_path=coco, detector=inception, clip=clip_g,
+                         cache_dir=os.path.join(tmp, "metric_cache"), batch_size=16, num_gen=16,
+                         verbose=False)
+    opts.hpsv2_prompts = HPS_STYLES
+    vit_keys = collections.Counter()
+    seconds = {}
+    for metric in ("fid_clip_test", "pr_test", "hpsv2"):
+        opts.clip = clip_h if metric == "hpsv2" else clip_g
+        registry.reset()
+        res = calc_metric(metric, opts=opts)
+        torch.cuda.synchronize()
+        seconds[metric] = res.total_time
+        keys = registry.launches_by_key("flash_attn_fwd")
+        vit = {k: n for k, n in keys.items() if k[0][2] == 257}
+        vit_keys.update(vit)
+        print(f"[metrics] {metric}: {dict(res.results)} in {res.total_time:.3f} s; K1 at the ViT "
+              f"shapes {vit}; on {card}")
+        require(all(math.isfinite(v) for v in res.results.values()),
+                f"{metric} is not finite: {dict(res.results)}")
+        if metric != "pr_test":
+            head = 80 if metric == "hpsv2" else 88
+            require(any(k[0][3] == head for k in vit), f"{metric}: K1 never launched at D = {head}")
+    for key in sorted(vit_keys, key=str):  # the kernel check at the metric path's own shapes
+        check_forward_kernel("flash_attn_fwd", key, gen)
+    batch = np.stack([np.asarray(images[i % len(images)].cpu()) for i in range(16)])
+    small = batch[:, ::2, ::2].copy()  # 256x256, the eval resolution
+    rates = {}
+    for label, fn in (("Inception", lambda: inception(small)),
+                      ("CLIP ViT-g/14", lambda: clip_g.image_features(small)),
+                      ("CLIP ViT-H/14", lambda: clip_h.image_features(small))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        rates[label] = 3 * len(small) / (time.perf_counter() - t0)
+    print(f"[metrics] images/s at batch 16, 256x256 in, host preprocessing included: {rates}; "
+          f"metric seconds {seconds}; on {card}")
+    time_fwd_keys({VIT_K1_KEYS[0]: 40}, gen, "ViT-g/14 image batch of 16")
+    time_fwd_keys({VIT_K1_KEYS[1]: 32}, gen, "ViT-H/14 image batch of 16")
+    del clip_g, clip_h, opts, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The CLI, in a process of its own, on the checkpoint and the snapshot.
+    out = os.path.join(tmp, "metrics_cli")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, HOME=tmp, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "sid_lsg_torch.cli.sid_metrics", "--metrics",
+                        "fid_test", "--data", coco, "--repo_id", ckpt, "--network", snapshot,
+                        "--outdir", out, "--num", "8"], env=env, cwd=root, capture_output=True,
+                       text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(r.returncode == 0, f"sid_metrics failed: {r.stderr[-3000:]}")
+    with open(os.path.join(out, "metric-fid_test.jsonl")) as f:
+        (line,) = f.read().splitlines()
+    fid = json.loads(line)["results"]["fid_test"]
+    print(f"[metrics] python -m sid_lsg_torch.cli.sid_metrics --metrics fid_test: fid_test {fid} "
+          f"in {cli_s:.3f} s (process start, checkpoint load and build included)")
+    require(math.isfinite(fid), f"sid_metrics fid_test {fid}")
+
+    # The Trainer's hook at a snapshot tick that is a metric tick.
+    cfg = sid_train.config_from_args(sid_train.build_parser().parse_args(
+        with_flag(TRAIN_ARGS, "--sd_model", ckpt)))
+    hook_dir = os.path.join(tmp, "hook")
+    os.makedirs(hook_dir)
+    cfg.run_dir, cfg.metrics, cfg.metric_data = hook_dir, ["fid_test"], coco
+    cfg.snapshot_ticks = cfg.metric_ticks = cfg.max_ticks = 1
+    cfg.kimg_per_tick, cfg.sample_ticks = 0, 0
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = tmp  # the metric stats cache
+    try:
+        t0 = time.perf_counter()
+        Trainer(cfg).run()
+        torch.cuda.synchronize()
+        hook_s = time.perf_counter() - t0
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+    with open(os.path.join(hook_dir, "metric-fid_test.jsonl")) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    print(f"[metrics] Trainer hook (snapshot and metric every tick, 2 steps): {len(lines)} line "
+          f"{lines}; run in {hook_s:.3f} s")
+    require(len(lines) == 1 and math.isfinite(lines[0]["results"]["fid_test"])
+            and lines[0]["snapshot_pkl"].startswith("network-snapshot-"),
+            "the Trainer's metric hook did not write its line at tick 1")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", default=None,
@@ -1866,6 +2217,9 @@ def main(argv=None) -> int:
     for name in SERVING_KERNELS:
         require(keys[name], f"{name}: the warm-up generation never launched it")
         max_abs[name] = max(check_forward_kernel(name, key, gen) for key in sorted(keys[name], key=str))
+    for key in VIT_K1_KEYS:  # the metric stack's CLIP towers (phase 19)
+        max_abs["flash_attn_fwd"] = max(max_abs["flash_attn_fwd"],
+                                        check_forward_kernel("flash_attn_fwd", key, gen))
     check_parity_f32(gen)
 
     # 4. Small reference: tiny preset, card (kernels) vs CPU (plain versions), f32.
@@ -1941,6 +2295,9 @@ def main(argv=None) -> int:
     kernels += train_entries
     checked = {name: set(keys.get(name, ())) | set(train_keys[name]) for name in registry.KERNELS}
     kernels.append(sida_phases(card, gen, checked, phase10, ckpt, corpus))
+    torch.cuda.empty_cache()
+    loop_phases(card, ckpt, tmp)
+    metric_phases(card, gen, ckpt, tmp, images)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

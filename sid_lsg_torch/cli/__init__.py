@@ -3,6 +3,7 @@
   python -m sid_lsg_torch.cli.generate_onestep ...   (one-step generation)
   python -m sid_lsg_torch.cli.sid_train ...          (distillation training)
   python -m sid_lsg_torch.cli.encode_latents ...     (SiDA real-latent corpus)
+  python -m sid_lsg_torch.cli.sid_metrics ...        (FID, CLIP score, precision/recall, HPSv2)
 """
 
 import argparse

@@ -1,10 +1,12 @@
 """Distillation training CLI of the port.
 
 An argparse copy of ``sid_lsg_tpu/cli/sid_train.py``: the same flag names
-and defaults, plus ``--device`` (``cuda`` unless asked for ``cpu``).  Flags
-whose feature is not ported yet are accepted here and refused by the
-``Trainer`` with the ROADMAP item that brings them.  Run dirs are numbered
-``{id:05d}-{desc}`` with ``training_options.json`` and ``log.txt`` inside.
+and defaults, plus ``--device`` (``cuda`` unless asked for ``cpu``).
+``--fsdp`` above 1 is accepted here and refused by the ``Trainer`` with the
+ROADMAP item that brings it.  Run dirs are numbered ``{id:05d}-{desc}`` with
+``training_options.json`` and ``log.txt`` inside; ``--dump`` writes
+training-state dumps under ``checkpoints/``, which ``--resume <run dir>``
+(or ``--resume latest`` with ``--nosubdir`` in the same run dir) continues.
 
     python -m sid_lsg_torch.cli.sid_train --outdir runs --sd_model tiny --device cpu \\
         --batch 4 --batch-micro 2 --tick 0 --max-ticks 2 --bf16 0 --snap 1
@@ -76,15 +78,16 @@ def build_parser() -> argparse.ArgumentParser:
     a("--lora_rank", type=int, default=4)
     a("--fsdp", type=int, default=1, help="FSDP axis size (not ported beyond 1)")
     a("--resolution", type=int, default=512)
-    a("--metrics", default=None, help="Comma-separated metric names (not ported)")
+    a("--metrics", default=None, help="Comma-separated metric names")
     a("--metric_data", default=None)
     a("--resume", default=None,
-      help="Generator snapshot file that G, the EMA and psi start from ('latest' and run "
-           "directories: not ported)")
+      help="'latest', a run directory with training-state dumps, or a generator snapshot "
+           "file that G, the EMA and psi start from")
     a("--resume_kimg", type=int, default=0)
     a("--desc", default=None, help="Run-dir description suffix")
     a("--max-ticks", dest="max_ticks", type=int, default=None, help="Stop after N ticks")
-    a("--profile-dir", dest="profile_dir", default=None, help="(not ported)")
+    a("--profile-dir", dest="profile_dir", default=None,
+      help="Capture a torch.profiler trace of a few steps here")
     a("--dry-run", dest="dry_run", action="store_true", help="Print options and exit")
     a("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p

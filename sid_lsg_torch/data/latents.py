@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -71,7 +71,8 @@ class LatentDataset:
 
 class InfiniteLatentIterator:
     """Endless microbatches, reshuffled each epoch with
-    ``RandomState(seed + epoch)`` (the JAX iterator's order for one process)."""
+    ``RandomState(seed + epoch)`` (the JAX iterator's order for one process).
+    The state is the epoch and the position in it (``state_dict``)."""
 
     def __init__(self, dataset: LatentDataset, batch_size: int, seed: int = 0):
         self.dataset = dataset
@@ -80,6 +81,14 @@ class InfiniteLatentIterator:
         self._epoch = 0
         self._pos = 0
         self._order: Optional[np.ndarray] = None
+
+    def state_dict(self) -> Dict[str, int]:
+        return {"epoch": self._epoch, "pos": self._pos}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self._epoch, self._pos = int(state["epoch"]), int(state["pos"])
+        self._order = (None if self._epoch == 0 else np.random.RandomState(
+            self.seed + self._epoch - 1).permutation(len(self.dataset)))
 
     def __iter__(self) -> "InfiniteLatentIterator":
         return self

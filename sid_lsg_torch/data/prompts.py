@@ -2,15 +2,31 @@
 
 Port of ``sid_lsg_tpu/data/prompts.py`` for one process: one prompt per
 non-empty line (a directory resolves the aesthetics file names), and an
-endless, seeded, window-shuffled stream of prompt batches.
+endless, seeded, window-shuffled stream of prompt batches whose position
+is an explicit state (``state_dict`` / ``load_state_dict``), so that a
+training-state dump can carry it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+
+def random_state_dict(rnd: np.random.RandomState) -> Dict[str, object]:
+    """A ``RandomState``'s state as tensors and numbers (what
+    ``torch.load(weights_only=True)`` reads back)."""
+    kind, keys, pos, has_gauss, cached = rnd.get_state()
+    return {"kind": kind, "keys": torch.from_numpy(keys.astype(np.int64)), "pos": int(pos),
+            "has_gauss": int(has_gauss), "cached_gaussian": float(cached)}
+
+
+def set_random_state(rnd: np.random.RandomState, state: Dict[str, object]) -> None:
+    rnd.set_state((state["kind"], np.asarray(state["keys"], dtype=np.uint32), state["pos"],
+                   state["has_gauss"], state["cached_gaussian"]))
 
 _AESTHETICS_VARIANTS = (
     "aesthetics_6_plus.txt",
@@ -54,7 +70,9 @@ class PromptDataset:
 class InfinitePromptIterator:
     """Endless shuffled prompt batches: deterministic given ``seed``; each
     pass reshuffles lazily within a window of ``window_ratio / 2`` of the
-    corpus (the JAX package's order, single process)."""
+    corpus (the JAX package's order, single process).  The state is the
+    order, the position and the ``RandomState`` that swaps within the
+    window."""
 
     def __init__(self, dataset: Sequence[str], batch_size: int, seed: int = 0,
                  shuffle: bool = True, window_ratio: float = 0.5):
@@ -65,24 +83,35 @@ class InfinitePromptIterator:
         self.seed = seed
         self.shuffle = shuffle
         self.window = int(np.rint(len(dataset) * window_ratio / 2)) if shuffle else 0
-        self._stream = self._indices()
+        self._order = np.arange(len(dataset))
+        self._rnd = np.random.RandomState(seed)
+        if shuffle:
+            self._rnd.shuffle(self._order)
+        self._idx = 0
 
-    def _indices(self) -> Iterator[int]:
-        order = np.arange(len(self.dataset))
-        rnd = np.random.RandomState(self.seed)
-        if self.shuffle:
-            rnd.shuffle(order)
-        idx = 0
-        while True:
-            i = idx % len(order)
-            yield int(order[i])
-            if self.window >= 2:
-                j = (i - rnd.randint(self.window)) % len(order)
-                order[i], order[j] = order[j], order[i]
-            idx += 1
+    def _next_index(self) -> int:
+        i = self._idx % len(self._order)
+        out = int(self._order[i])
+        if self.window >= 2:
+            j = (i - self._rnd.randint(self.window)) % len(self._order)
+            self._order[i], self._order[j] = self._order[j], self._order[i]
+        self._idx += 1
+        return out
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"order": torch.from_numpy(self._order.astype(np.int64)), "idx": self._idx,
+                "rnd": random_state_dict(self._rnd)}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        order = np.asarray(state["order"], dtype=np.int64)
+        if order.shape != self._order.shape:
+            raise ValueError(f"a prompt order of {len(order)} for a corpus of {len(self._order)}")
+        self._order = order.astype(self._order.dtype)
+        self._idx = int(state["idx"])
+        set_random_state(self._rnd, state["rnd"])
 
     def __iter__(self) -> "InfinitePromptIterator":
         return self
 
     def __next__(self) -> List[str]:
-        return [self.dataset[next(self._stream)] for _ in range(self.batch_size)]
+        return [self.dataset[self._next_index()] for _ in range(self.batch_size)]

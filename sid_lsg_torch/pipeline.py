@@ -29,7 +29,7 @@ Weights otherwise come from a state dict per part (``{'unet', 'vae',
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -128,7 +128,9 @@ class SDPipeline:
         parts = {part: _materialise(module, self.device, dtype, state_dicts[part])
                  for part, module in _skeletons(config).items()}
         self.unet, self.vae, self.text_model = parts["unet"], parts["vae"], parts["text"]
-        self.generator: Optional[nn.Module] = None
+        # The distilled generator: a UNet module, or any ``(x, t, c)`` callable
+        # (the Trainer's EMA apply while its metrics run).
+        self.generator: Optional[Callable] = None
         self._uncond: Optional[torch.Tensor] = None
 
     @classmethod
@@ -157,7 +159,7 @@ class SDPipeline:
                                       load_generator_params(path, self.config.unet))
 
     @property
-    def generator_unet(self) -> nn.Module:
+    def generator_unet(self) -> Callable:
         """The UNet that samples: the loaded generator, else the teacher."""
         return self.unet if self.generator is None else self.generator
 

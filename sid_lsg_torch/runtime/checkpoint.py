@@ -17,6 +17,11 @@ by ``models.convert.unet_params_from_jax``) and a torch pickle of the
 reference (``network-snapshot-*.pkl`` holding ``{'ema': module}``, a training
 state, a bare module or a ``.bin`` / ``.pt`` state dict), unpickled without
 diffusers.
+
+``CheckpointManager`` keeps the training-state dumps of a run (port of the
+JAX package's orbax manager, on ``torch.save``): ``<dir>/<step>/state.pt``,
+written under a temporary name and renamed into place, the newest five kept.
+A JAX orbax dump cannot be read by it.
 """
 
 from __future__ import annotations
@@ -24,10 +29,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import struct
 import sys
 import types
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -217,9 +223,10 @@ def load_generator_params(path: str, unet_cfg: UNetConfig) -> Dict[str, torch.Te
     from ..models.unet import UNet2DCondition
 
     if os.path.isdir(path):
-        raise ValueError(f"{path} is a directory: orbax training-state checkpoints are not "
-                         "ported yet (ROADMAP Queue 1 item 5a); pass a .safetensors, .pkl, "
-                         ".pt or .bin generator file")
+        raise ValueError(f"{path} is a directory, not a generator file: a run directory of the "
+                         "port resumes its training state with --resume <run dir>, and the JAX "
+                         "package's orbax dumps cannot be read (ROADMAP Queue 1 item 5a); pass a "
+                         ".safetensors, .pkl, .pt or .bin generator file")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"generator file {path!r} does not exist")
     if path.endswith(".safetensors"):
@@ -232,3 +239,113 @@ def load_generator_params(path: str, unet_cfg: UNetConfig) -> Dict[str, torch.Te
         skeleton = UNet2DCondition(unet_cfg)
     check_state_dict(sd, skeleton, path)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Training-state dumps
+
+
+def _detached(tree: Any) -> Any:
+    if torch.is_tensor(tree):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree
+
+
+def _check_like(loaded: Any, template: Any, path: str) -> None:
+    """Raise ``KeyError`` where the dict keys differ and ``ValueError`` where a
+    tensor's shape or dtype, or a leaf's kind, differs from ``template``."""
+    where = path or "<root>"
+    if isinstance(template, dict):
+        if not isinstance(loaded, dict):
+            raise ValueError(f"{where}: a dict in the template, {type(loaded).__name__} in the dump")
+        if set(loaded) != set(template):
+            missing, extra = sorted(set(template) - set(loaded)), sorted(set(loaded) - set(template))
+            raise KeyError(f"{where}: keys differ from the template (missing {missing[:5]}, "
+                           f"unexpected {extra[:5]})")
+        for k in template:
+            _check_like(loaded[k], template[k], f"{path}/{k}" if path else str(k))
+    elif torch.is_tensor(template):
+        if not torch.is_tensor(loaded):
+            raise ValueError(f"{where}: a tensor in the template, {type(loaded).__name__} in the dump")
+        if loaded.shape != template.shape or loaded.dtype != template.dtype:
+            raise ValueError(f"{where}: {tuple(loaded.shape)} {loaded.dtype} in the dump, "
+                             f"{tuple(template.shape)} {template.dtype} in the template")
+    elif (template is None) != (loaded is None) or isinstance(loaded, (dict, torch.Tensor)):
+        raise ValueError(f"{where}: {type(loaded).__name__} in the dump, "
+                         f"{type(template).__name__} in the template")
+
+
+@torch.no_grad()
+def _fill(loaded: Any, template: Any) -> Any:
+    """``template`` with each tensor overwritten in place by the dump's."""
+    if isinstance(template, dict):
+        return {k: _fill(loaded[k], v) for k, v in template.items()}
+    if torch.is_tensor(template):
+        return template.copy_(loaded)
+    return loaded
+
+
+class CheckpointManager:
+    """Training-state dumps under ``directory``: ``<step>/state.pt``, one
+    directory a step.
+
+    ``save`` writes the tree (nested dicts of tensors, numbers, strings and
+    None) with ``torch.save`` into a temporary directory, syncs it and renames
+    it into place, so a half-written dump is never a step; the newest
+    ``max_to_keep`` are kept.  ``restore(step, template)`` reads the file
+    memory-mapped (``weights_only``) and, after checking every key, shape and
+    dtype against ``template``, copies it tensor by tensor into the
+    template's tensors, which it returns; the host never holds the dump
+    twice.  Saves are synchronous: ``wait`` and ``close`` do nothing."""
+
+    FILE = "state.pt"
+
+    def __init__(self, directory: str, max_to_keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(int(step)))
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.isfile(os.path.join(self.directory, n, self.FILE)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, tree: Any) -> str:
+        final = self._step_dir(step)
+        tmp = f"{final}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        path = os.path.join(tmp, self.FILE)
+        torch.save(_detached(tree), path)
+        with open(path, "rb") as f:
+            os.fsync(f.fileno())
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        return os.path.join(final, self.FILE)
+
+    def restore(self, step: Optional[int] = None, template: Any = None) -> Any:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no training-state dump under {self.directory}")
+        path = os.path.join(self._step_dir(step), self.FILE)
+        loaded = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        if template is None:
+            return loaded
+        _check_like(loaded, template, "")
+        return _fill(loaded, template)
+
+    def wait(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -12,11 +12,21 @@ Weights: ``model`` names an HF-layout checkpoint directory, or a preset /
 (``pipeline.load_pretrained``); the teacher, G and psi start from its UNet.
 ``resume`` names a generator file (``runtime.checkpoint.load_generator_params``):
 G, the EMA and a full-UNet psi each start from their own copy of it, a LoRA
-psi keeps its factors and the pixel judge its heads.  What is not ported yet
-is refused when the ``Trainer`` is built, each with the ROADMAP item that
-brings it: resuming a training state (``latest`` or a run directory),
-metrics, ``fsdp > 1``, orbax state dumps (which would also carry the
-spectral ``u`` vectors of the SiDA pixel judge) and profiler traces.
+psi keeps its factors and the pixel judge its heads.  ``resume='latest'``
+(this run dir) or a run directory restores a training-state dump instead
+(``training_loop``).
+
+State dumps (``state_dump_ticks``) go to ``<run_dir>/checkpoints/<step>``
+through ``runtime.checkpoint.CheckpointManager``.  The JAX step folds the step
+number into a fixed key, so its state alone resumes it; this port draws every
+step from one advancing CPU generator and from the prompt (and real-latent)
+iterators, so a dump also carries their states and, with the pixel judge,
+the spectral ``u`` vectors.  A run resumed from a dump takes the same next
+step as the run that was never stopped.  ``profile_dir`` traces steps
+``[profile_start_step, profile_start_step + profile_steps)`` with
+``torch.profiler``; ``metrics`` run on the EMA generator at the snapshot
+ticks that are also metric ticks (``eval_metrics``).  ``fsdp > 1`` is refused
+(ROADMAP Queue 1 item 5b).
 
 SiDA (``adv_weight_D`` / ``adv_weight_G`` > 0): the ``encoder`` tower judges
 with psi's encoder; the ``dino`` tower builds a ``ProjectedDiscriminator``
@@ -32,7 +42,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import resource
 import time
 from typing import Dict, List, Optional
 
@@ -41,7 +50,8 @@ import torch
 
 from ..cli.pngio import write_png
 from ..data.latents import InfiniteLatentIterator, LatentDataset
-from ..data.prompts import InfinitePromptIterator, PromptDataset
+from ..data.prompts import (InfinitePromptIterator, PromptDataset, random_state_dict,
+                            set_random_state)
 from ..device import resolve_device
 from ..diffusion.rng import StackedRandomGenerator
 from ..diffusion.sampling import sid_sampler
@@ -57,8 +67,9 @@ from ..models.stylegan_discriminator import (
 )
 from ..models.unet import unet_apply_fn
 from ..pipeline import SDPipeline, load_pretrained
-from ..runtime.checkpoint import export_generator, load_generator_params
+from ..runtime.checkpoint import CheckpointManager, export_generator, load_generator_params
 from ..utils import training_stats
+from ..utils.misc import cpu_memory_gb, peak_device_memory_gb, start_profiler_trace
 from ..utils.util import EasyDict, format_time
 from .adversarial import make_pixel_disc
 from .distill import DISC_PREFIX, DistillConfig, make_train_step
@@ -135,36 +146,18 @@ class TrainConfig:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
 
-def last_tick(cfg: TrainConfig) -> int:
-    """Index of the run's last tick under the loop below: tick 0 after the
-    first step, then one tick per ``kimg_per_tick`` (each step when 0), the
-    last one cut short by ``total_kimg`` or ``max_ticks``."""
-    steps = max(1, -(-cfg.total_kimg * 1000 // cfg.batch_size))
-    per_tick = max(1, -(-cfg.kimg_per_tick * 1000 // cfg.batch_size))
-    ticks = -(-(steps - 1) // per_tick)
-    return ticks if cfg.max_ticks is None else min(ticks, cfg.max_ticks)
+def resumes_state(cfg: TrainConfig) -> bool:
+    """Whether ``resume`` names a training state (``latest`` or a run
+    directory with dumps) rather than a generator file."""
+    return cfg.resume == "latest" or (
+        cfg.resume is not None and os.path.isdir(os.path.join(cfg.resume, "checkpoints")))
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise ``ValueError`` for an option whose feature is not ported yet."""
-    resume_state = cfg.resume == "latest" or (
-        cfg.resume is not None and os.path.isdir(os.path.join(cfg.resume, "checkpoints")))
-    checks = [
-        (resume_state,
-         f"resume {cfg.resume!r}: resuming a training state is not ported yet (ROADMAP Queue 1 "
-         f"item 5); pass a generator snapshot file"),
-        (bool(cfg.metrics), "metrics during training are not ported yet (ROADMAP Queue 1 item 7)"),
-        (cfg.fsdp > 1, "fsdp > 1 (torch.distributed) is not ported yet (ROADMAP Queue 1 item 5)"),
-        (cfg.state_dump_ticks > 0 and last_tick(cfg) >= cfg.state_dump_ticks,
-         f"this schedule reaches a state dump at tick {cfg.state_dump_ticks} (last tick "
-         f"{last_tick(cfg)}); state dumps are not ported yet (ROADMAP Queue 1 item 5): pass "
-         f"--dump 0 or fewer ticks"),
-        (cfg.profile_dir is not None,
-         "profiler traces of the loop are not ported yet (ROADMAP Queue 1 item 5)"),
-    ]
-    for bad, msg in checks:
-        if bad:
-            raise ValueError(msg)
+    """Raise ``ValueError`` for an option whose feature is not ported yet,
+    or that contradicts another."""
+    if cfg.fsdp > 1:
+        raise ValueError("fsdp > 1 (torch.distributed) is not ported yet (ROADMAP Queue 1 item 5b)")
     if cfg.batch_size % cfg.microbatch:
         raise ValueError(f"batch_size {cfg.batch_size} is not a multiple of microbatch "
                          f"{cfg.microbatch}")
@@ -202,7 +195,7 @@ class Trainer:
         del sds
         # G's (and the EMA's and a full psi's) starting weights.
         g_init = unet_f32
-        if cfg.resume is not None:
+        if cfg.resume is not None and not resumes_state(cfg):
             g_init = {k: v.to(self.device)
                       for k, v in load_generator_params(cfg.resume, sd_cfg.unet).items()}
         self.a_rounds = cfg.batch_size // cfg.microbatch
@@ -260,6 +253,7 @@ class Trainer:
         # All draws of the step (see the training.distill docstring), on the host.
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self._init_real_latents()
+        self.ckpt_mgr: Optional[CheckpointManager] = None
 
     def _build_disc(self, text_dim: int) -> ProjectedDiscriminator:
         """The pixel judge: random weights from ``seed + 3``, the backbone
@@ -287,6 +281,7 @@ class Trainer:
         """The real-latent stream: only the D loss reads it."""
         cfg = self.cfg
         self.latents: Optional[InfiniteLatentIterator] = None
+        self._adv_rng: Optional[np.random.RandomState] = None
         if cfg.adv_data and self.dcfg.adv_weight_D == 0.0:
             print("WARNING: --adv_data is set but adv_weight_d == 0 - the real-latent corpus will "
                   "NOT be read (only the discriminator loss consumes real latents).")
@@ -359,6 +354,92 @@ class Trainer:
         export_generator(self.state.ema, path)
         return path
 
+    def _ckpt_tree(self, spectral: bool = True) -> dict:
+        """A dump's payload: the state (its tensors are the live ones), the
+        step generator's state, the iterators' states and, with the pixel
+        judge, its spectral ``u`` vectors (the JAX layout without them is the
+        pre-spectral one, ``spectral=False``)."""
+        st = self.state
+        opt = lambda a: {"count": a.count, "mu": a.mu, "nu": a.nu}
+        tree = {"state": {"step": st.step, "nimg": st.nimg, "params_G": st.params_G,
+                          "params_fake": st.params_fake, "ema": st.ema, "opt_G": opt(st.opt_G),
+                          "opt_fake": opt(st.opt_fake)},
+                "rng": self.generator.get_state(), "prompts": self.prompts.state_dict()}
+        if self.latents is not None:
+            tree["latents"] = self.latents.state_dict()
+        if self._adv_rng is not None:
+            tree["adv_rng"] = random_state_dict(self._adv_rng)
+        if self.disc is not None and spectral:
+            tree["spectral"] = spectral_buffers(self.disc)
+        return tree
+
+    def _accept_ckpt(self, tree: dict) -> None:
+        """Take what ``restore`` did not write in place: the numbers and the
+        host generators' states."""
+        st = tree["state"]
+        self.state.step, self.state.nimg = int(st["step"]), float(st["nimg"])
+        self.state.opt_G.count = int(st["opt_G"]["count"])
+        self.state.opt_fake.count = int(st["opt_fake"]["count"])
+        self.generator.set_state(tree["rng"])
+        self.prompts.load_state_dict(tree["prompts"])
+        if self.latents is not None:
+            self.latents.load_state_dict(tree["latents"])
+        if self._adv_rng is not None:
+            set_random_state(self._adv_rng, tree["adv_rng"])
+
+    def restore_from(self, mgr: CheckpointManager, step: Optional[int] = None) -> None:
+        """Restore through ``mgr`` with the current layout, falling back to
+        the pre-spectral layout for a dump without the judge's ``u`` vectors.
+        Only a key or shape mismatch falls back (read failures propagate),
+        and the fallback warns: the ``u`` vectors stay at their start, so
+        sigma is under-estimated until power iteration converges again."""
+        try:
+            restored = mgr.restore(step, template=self._ckpt_tree())
+        except (KeyError, ValueError):
+            if self.disc is None:
+                raise
+            restored = mgr.restore(step, template=self._ckpt_tree(spectral=False))
+            print("WARNING: checkpoint restored with the pre-spectral layout; spectral-norm u "
+                  "vectors reset to init (sigma will be under-estimated until power iteration "
+                  "re-converges).", flush=True)
+        self._accept_ckpt(restored)
+
+    def save_state(self, step: int) -> str:
+        if self.ckpt_mgr is None:
+            self.ckpt_mgr = CheckpointManager(os.path.join(self.cfg.run_dir, "checkpoints"))
+        path = self.ckpt_mgr.save(step, self._ckpt_tree())
+        self.ckpt_mgr.wait()
+        return path
+
+    def restore_state(self) -> bool:
+        """Restore the newest dump of this run dir; False when it has none."""
+        ckdir = os.path.join(self.cfg.run_dir, "checkpoints")
+        if not os.path.isdir(ckdir):
+            return False
+        mgr = CheckpointManager(ckdir)
+        step = mgr.latest_step()
+        if step is None:
+            return False
+        self.restore_from(mgr, step)
+        return True
+
+    def eval_metrics(self, snapshot_path: Optional[str]) -> None:
+        """Run the configured metrics on the current EMA generator: the
+        pipeline samples through the EMA for their length."""
+        if not self.cfg.metrics:
+            return
+        from ..metrics import MetricOptions, calc_metric, report_metric
+
+        opts = MetricOptions(pipe=self.pipe, dataset_path=self.cfg.metric_data,
+                             num_gen=self.cfg.metric_num_gen, init_timestep=self.cfg.init_timestep)
+        self.pipe.generator = lambda x, t, c: self.unet_apply(self.state.ema, x, t, c)
+        try:
+            for metric in self.cfg.metrics:
+                result = calc_metric(metric, opts=opts)
+                report_metric(result, run_dir=self.cfg.run_dir or None, snapshot_pkl=snapshot_path)
+        finally:
+            self.pipe.generator = None
+
     @torch.no_grad()
     def _eval_images(self, prompts: List[str], lat: torch.Tensor, num_steps_eval: int) -> np.ndarray:
         """EMA generator samples (latents NCHW) -> uint8 images (N, H, W, 3)."""
@@ -408,8 +489,15 @@ class Trainer:
         print(f"Training for {cfg.total_kimg} kimg (batch {cfg.batch_size}, "
               f"{self.a_rounds} accumulation rounds) on {self.device}...", flush=True)
         pending: list = []
+        step_idx, trace = 0, None
         while True:
+            if cfg.profile_dir and step_idx == cfg.profile_start_step:
+                trace = start_profiler_trace(cfg.profile_dir)
             pending.append(self.step())
+            if trace is not None and step_idx + 1 >= cfg.profile_start_step + cfg.profile_steps:
+                print(f"profiler trace written to {trace.stop()}", flush=True)
+                trace = None
+            step_idx += 1
             cur_nimg += cfg.batch_size
             if len(pending) >= 256:
                 self._flush_metrics(pending)
@@ -434,9 +522,8 @@ class Trainer:
             fields.maintenance = maintenance_time
             fields.fake_loss = collector.mean("fake_score_Loss/loss")
             fields.g_loss = collector.mean("G_Loss/loss")
-            fields.cpumem_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-            fields.devmem_gb = (torch.cuda.max_memory_allocated(self.device) / 2**30
-                                if self.device.type == "cuda" else 0.0)
+            fields.cpumem_gb = cpu_memory_gb()
+            fields.devmem_gb = peak_device_memory_gb()
             print(f"tick {fields.tick:<5d} kimg {fields.kimg:<9.1f} "
                   f"time {fields.time:<12s} sec/tick {fields.sec_per_tick:<8.1f} "
                   f"sec/kimg {fields.sec_per_kimg:<8.2f} "
@@ -455,24 +542,49 @@ class Trainer:
                     done or cur_tick % cfg.sample_ticks == 0 or cur_tick in EARLY_SAMPLE_TICKS):
                 for nse in (1, 2, 4):
                     self.sample_grid(cur_nimg // 1000, num_steps_eval=nse)
-            if cfg.snapshot_ticks and cur_tick and cur_tick % cfg.snapshot_ticks == 0 and have_dir:
-                self.save_snapshot(cur_nimg // 1000)
+            if cfg.snapshot_ticks and cur_tick and cur_tick % cfg.snapshot_ticks == 0:
+                snap_path = self.save_snapshot(cur_nimg // 1000) if have_dir else None
+                if cfg.metrics and cfg.metric_ticks and cur_tick % cfg.metric_ticks == 0:
+                    self.eval_metrics(snap_path)
+            if cfg.state_dump_ticks and cur_tick and cur_tick % cfg.state_dump_ticks == 0:
+                self.save_state(self.state.step)
             maintenance_time = time.time() - maintenance_start
             cur_tick += 1
             tick_start_nimg = cur_nimg
             tick_start_time = time.time()
             if done:
                 break
+        if trace is not None:
+            print(f"profiler trace written to {trace.stop()}", flush=True)
         if stats_jsonl is not None:
             stats_jsonl.close()
+        if self.ckpt_mgr is not None:
+            self.ckpt_mgr.wait()
+            self.ckpt_mgr.close()
+            self.ckpt_mgr = None
         print("Exiting...", flush=True)
         return self.state
 
 
+def resume_training_state(trainer: Trainer) -> None:
+    """The state-resume branches of ``training_loop``: ``latest`` restores
+    the newest dump of the trainer's own run dir (none: a fresh start), a run
+    directory its newest dump.  A generator file was read by the
+    ``Trainer`` itself."""
+    cfg = trainer.cfg
+    if cfg.resume == "latest":
+        trainer.restore_state()
+    elif resumes_state(cfg):
+        trainer.restore_from(CheckpointManager(os.path.join(cfg.resume, "checkpoints")))
+        print(f"Resumed training state from {cfg.resume} (step {trainer.state.step})", flush=True)
+
+
 def training_loop(cfg: TrainConfig) -> SiDState:
-    """Write ``training_options.json`` into the run dir, build, run."""
+    """Write ``training_options.json`` into the run dir, build, resume, run."""
     if cfg.run_dir and cfg.run_dir != ".":
         os.makedirs(cfg.run_dir, exist_ok=True)
         with open(os.path.join(cfg.run_dir, "training_options.json"), "w") as f:
             f.write(cfg.as_json())
-    return Trainer(cfg).run()
+    trainer = Trainer(cfg)
+    resume_training_state(trainer)
+    return trainer.run()

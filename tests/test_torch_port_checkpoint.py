@@ -56,7 +56,7 @@ from sid_lsg_torch.runtime.checkpoint import (  # noqa: E402
     read_safetensors,
     write_safetensors,
 )
-from sid_lsg_torch.training.loop import Trainer, TrainConfig  # noqa: E402
+from sid_lsg_torch.training.loop import Trainer, TrainConfig, resume_training_state  # noqa: E402
 
 torch.set_num_threads(2)
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "tiny_hf_ckpt")
@@ -488,8 +488,12 @@ def test_trainer_resumes_from_a_generator_file(tmp_path, lora):
         _assert_same({k: v.detach() for k, v in st.params_fake.items()}, hf)
         ptr = lambda tree: tree["conv_in.weight"].data_ptr()
         assert ptr(st.params_fake) != ptr(st.params_G)
-        # A run directory's training state is not a generator file: refused.
+        # A run directory is a training state, not a generator file: the
+        # Trainer starts from the checkpoint, and the resume finds no dump.
         (tmp_path / "checkpoints").mkdir()
-        with pytest.raises(ValueError, match="not ported yet \\(ROADMAP Queue 1 item 5\\)"):
-            Trainer(TrainConfig(model=FIXTURE, resume=str(tmp_path), device="cpu", batch_size=2,
-                                microbatch=2, total_kimg=1, kimg_per_tick=0, state_dump_ticks=0))
+        tr_dir = Trainer(TrainConfig(model=FIXTURE, resume=str(tmp_path), device="cpu",
+                                     batch_size=2, microbatch=2, total_kimg=1, kimg_per_tick=0,
+                                     state_dump_ticks=0))
+        _assert_same(tr_dir.state.ema, load_sd_checkpoint(FIXTURE)["unet"])
+        with pytest.raises(FileNotFoundError, match="no training-state dump"):
+            resume_training_state(tr_dir)

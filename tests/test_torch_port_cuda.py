@@ -65,6 +65,10 @@ def dev():
     (torch.bfloat16, 1, 2, 100, 77, 36),
     (torch.float32, 1, 1, 1024, 1024, 512),
     (torch.float32, 2, 3, 200, 77, 40),
+    # The metric stack's CLIP towers: ViT-g/14 (head dim 88) and the HPSv2
+    # ViT-H/14 (80), 257 tokens, f32.
+    (torch.float32, 16, 16, 257, 257, 88),
+    (torch.float32, 16, 16, 257, 257, 80),
 ])
 def test_flash_attn_fwd_matches_plain(dev, dtype, b, h, sq, sk, d):
     g = torch.Generator(dev).manual_seed(0)

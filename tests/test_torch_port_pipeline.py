@@ -75,8 +75,8 @@ def test_generate_matches_jax_pipeline(port_pipe, jax_params):
 
 def test_port_imports_without_jax():
     """The port imports with the JAX package and what the card's machine
-    lacks (``regex``, ``PIL``, ``safetensors``) blocked."""
-    blocked = ("jax", "flax", "sid_lsg_tpu", "regex", "PIL", "safetensors")
+    lacks (``regex``, ``PIL``, ``safetensors``, ``click``) blocked."""
+    blocked = ("jax", "flax", "sid_lsg_tpu", "regex", "PIL", "safetensors", "click")
     code = (
         "import sys\n"
         f"for name in {blocked!r}:\n"
@@ -85,6 +85,10 @@ def test_port_imports_without_jax():
         "import sid_lsg_torch.cli.generate_onestep, sid_lsg_torch.cli.encode_latents\n"
         "import sid_lsg_torch.cli.sid_train, sid_lsg_torch.training.loop\n"
         "import sid_lsg_torch.models.tokenizer, sid_lsg_torch.runtime.checkpoint\n"
+        "import sid_lsg_torch.metrics, sid_lsg_torch.metrics.detectors\n"
+        "import sid_lsg_torch.cli.sid_metrics, sid_lsg_torch.data.mscoco\n"
+        "import sid_lsg_torch.models.inception, sid_lsg_torch.models.clip_vision\n"
+        "import sid_lsg_torch.utils.misc, sid_lsg_torch.utils.resample\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
