@@ -22,8 +22,9 @@ encode and ``encode_latents`` (phases 6a-6b), the SiD-LSG distillation train
 step (phases 7-11, with ``load_generator`` and ``--resume`` in 10a), the
 SiDA adversarial train step on the encoded corpus (phases 12-16), the
 training loop as users run it with a state dump, the profiler and resume
-(phases 17-18), the metrics (phase 19) and the training CLI under torchrun
-at world size 1 (phase 20).
+(phases 17-18), the metrics (phase 19), the training CLI under torchrun
+at world size 1 (phase 20) and the legacy nets, EDM's and StyleGAN-T's, at
+full width (phase 21).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time,
    the card's name and power limit, the registers and spills of K1's, K4's,
@@ -229,6 +230,25 @@ at world size 1 (phase 20).
    gradient shapes: the bucketed ``all_reduce_grads`` and one bare
    ``all_reduce`` of a bucket), each the median of five on CUDA events.
 
+21. The legacy nets at full width, f32, TF32 off, batch 64, random weights
+   randn x 0.1 from seed 0 (``LEGACY_NETS``: EDM's DDPM++ and NCSN++ CIFAR-10
+   under VPPrecond / VEPrecond, ADM ImageNet-64 under EDMPrecond, the
+   StyleGAN-T generator at 64x64 with a 768-wide text embedding and its
+   noise drawn from an explicit generator): a warm-up forward of each
+   (finite, of the right shape, not constant), then the counters zeroed and
+   one forward of each: K1, K7 and K8 launched (K2 + K3 where ``gn_plan``
+   routes a map there), no backward kernel; every K1, K7, K8, K2 and K3
+   shape they launched held to its plain version with phase 3's gate (K8
+   and K2 at the eps their launch keys record); the
+   nets cut to the CPU tests' sizes on the card against the CPU (atol 5e-4,
+   rtol 1e-3).  Printed: seconds per forward (median of 10), device busy
+   time and idle share of one traced forward, and each kernel's time summed
+   over the pass beside its bound and its library call (SDPA f32,
+   ``F.group_norm``, ``torch.add`` over the linear biases; K7 timed as in
+   phase 16, over ``LEGACY_K7_ROUNDS`` rounds).  The pass's
+   launches join each kernel's entry of the kernels line, its numbers under
+   the entry's ``legacy`` key.
+
 Any failure raises and exits non-zero.  The last line is the result object.
 """
 
@@ -238,6 +258,7 @@ import argparse
 import atexit
 import collections
 import contextlib
+import copy
 import ctypes
 import json
 import math
@@ -264,9 +285,17 @@ INIT_TIMESTEP = 625
 TOL_F32 = dict(atol=1e-4, rtol=1e-3)
 TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
 REL_L2 = 1e-2  # ||got - ref|| / ||ref|| per output, all dtypes
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores, HBM3.
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores, HBM3;
+# "3xtf32" is the TF32 tensor-core rate over three, the rate of the f32
+# products that the attention kernels (K1, K4, K5, K6) split into three TF32
+# products each.  The other kernels' f32 work runs on the CUDA cores.
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "3xtf32": 495e12 / 3}
 PEAK_BYTES = 3.35e12
+
+
+def mma_type(dt: str) -> str:
+    """The ``PEAK_FLOPS`` key of an attention kernel's products in dtype ``dt``."""
+    return "3xtf32" if dt == "torch.float32" else dt
 SOURCES = {
     "flash_attn_fwd": ("sid_lsg_torch/csrc/flash_attn_fwd.cu", "sid_lsg_tpu/ops/attention.py:127"),
     "gn_fused": ("sid_lsg_torch/csrc/gn_fused.cu", "sid_lsg_tpu/ops/groupnorm.py:111"),
@@ -734,7 +763,7 @@ def kernel_cases(name, key, gen):
         v = (torch.randn(ks, generator=gen, device=dev) * math.sqrt(sk / math.e)).to(dtype)
         esize = q.element_size()
         work = ((2 * b * h * sq * d + 2 * b * h * sk * d) * esize + 4 * b * h * sq,
-                4 * b * h * sq * sk * d, dt)
+                4 * b * h * sq * sk * d, mma_type(dt))
         return (lambda: ops.flash_attn_fwd(q, k, v),
                 lambda: ops.attention_ref(q.float(), k.float(), v.float()),
                 lambda: F.scaled_dot_product_attention(q, k, v),
@@ -745,7 +774,8 @@ def kernel_cases(name, key, gen):
 
 def gn_cases(name, key, gen) -> dict:
     """For one recorded launch key of K8, K2 or K3, on fresh inputs of that
-    shape (x = 2 * normal + 0.5 in the key's dtype): the kernel, its plain
+    shape (x = 2 * normal + 0.5 in the key's dtype) at the key's eps (K3
+    takes stats, not eps: its stats use 1e-5): the kernel, its plain
     version, the library yardstick (None for K3), the baseline's kernels
     (K2 + K3 for K8, K2 for K2, K3 for K3; None without ``--baseline``), the
     tolerance and (bytes, operations, type)."""
@@ -763,21 +793,23 @@ def gn_cases(name, key, gen) -> dict:
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
     lib = BASELINE if BASELINE is not None and hasattr(BASELINE, "sidlsg_gn_stats") else None
     if name == "gn_stats":
-        return {"kern": lambda: ops.gn_stats(x, groups, 1e-5),
-                "plain": lambda: ops.gn_stats_ref(x.float(), groups, 1e-5),
+        eps = key[3]
+        return {"kern": lambda: ops.gn_stats(x, groups, eps),
+                "plain": lambda: ops.gn_stats_ref(x.float(), groups, eps),
                 "library": lambda: torch.var_mean(x.view(n, groups, -1), dim=-1, correction=0),
-                "baseline": lib and (lambda: baseline_gn_stats(lib, x, groups, 1e-5)),
+                "baseline": lib and (lambda: baseline_gn_stats(lib, x, groups, eps)),
                 "tol": TOL_F32, "work": (numel * es + 8 * n * groups, 3 * numel, "torch.float32")}
     silu = key[3]
     gamma = torch.randn(c, generator=gen, device=dev) + 1
     beta = torch.randn(c, generator=gen, device=dev)
     if name == "gn_fused":
+        eps = key[4]
         g16, b16 = gamma.to(dtype), beta.to(dtype)
         act = F.silu if silu else (lambda y: y)
-        return {"kern": lambda: ops.gn_fused(x, gamma, beta, groups, 1e-5, silu),
-                "plain": lambda: ops.group_norm_ref(x.float(), gamma, beta, groups, 1e-5, silu),
-                "library": lambda: act(F.group_norm(x, groups, g16, b16, 1e-5)),
-                "baseline": lib and (lambda: baseline_group_norm(lib, x, gamma, beta, groups, 1e-5,
+        return {"kern": lambda: ops.gn_fused(x, gamma, beta, groups, eps, silu),
+                "plain": lambda: ops.group_norm_ref(x.float(), gamma, beta, groups, eps, silu),
+                "library": lambda: act(F.group_norm(x, groups, g16, b16, eps)),
+                "baseline": lib and (lambda: baseline_group_norm(lib, x, gamma, beta, groups, eps,
                                                                  silu)),
                 "tol": tol, "work": (2 * numel * es + 8 * c, (9 if silu else 5) * numel,
                                      "torch.float32")}
@@ -1495,7 +1527,7 @@ def train_phases(card: str, gen, serving_keys, ckpt: str, tmp: str):
         twopass_ms += n * tp_ms
         print(f"[time] flash_attn_bwd_twopass {key} x{n}: {tp_ms:.4f} ms (one call: delta, K5, K6)")
         for name, (kern, _, nbytes, flops) in cases.items():
-            ops_ms = flops / PEAK_FLOPS[key[2]] * 1e3
+            ops_ms = flops / PEAK_FLOPS[mma_type(key[2])] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             ms = time_ms(kern)
             base = baseline_ms(kern)
@@ -1620,9 +1652,9 @@ K7_TIMES = ("ms", "device_ms", "host_us")  # host-paced, device alone, host per 
 K7_PREFIXES = ("", "library_", "base_")  # K7, torch.add, the baseline's K7
 
 
-def time_bias_act(c) -> dict:
+def time_bias_act(c, rounds: int = K7_ROUNDS) -> dict:
     """K7 on one case of ``bias_act_case``, beside ``torch.add`` and the
-    baseline's K7 (0.0 where absent), in ``K7_ROUNDS`` rounds that take each
+    baseline's K7 (0.0 where absent), in ``rounds`` rounds that take each
     in turn: host-paced (``ms``: ``time_ms``, CUDA events around
     back-to-back calls, as the attention kernels are timed), on the device
     alone (``device_ms``: 100 calls queued behind the spin kernel) and host
@@ -1633,7 +1665,7 @@ def time_bias_act(c) -> dict:
     ops_ms, bytes_ms = flops / PEAK_FLOPS[op_type] * 1e3, nbytes / PEAK_BYTES * 1e3
     fns = dict(zip(K7_PREFIXES, (c["kern"], c["library"], c["baseline"])))
     samples = collections.defaultdict(list)
-    for _ in range(K7_ROUNDS):
+    for _ in range(rounds):
         for prefix, fn in fns.items():
             if fn:
                 for name, timer in zip(K7_TIMES, (time_ms, lambda f: device_ms(f, iters=100),
@@ -1807,7 +1839,7 @@ def sida_phases(card: str, gen, checked, phase10, ckpt: str, corpus: str) -> dic
                         "bound_ms", "k5_bound_ms", "k6_bound_ms", "plain_ms", "sdpa_ms"), 0.0)
     for key, (cases, plain, (sdpa_fwd, sdpa_both), twopass_fn) in bwd.items():
         n = sida_keys["flash_attn_bwd"][key]
-        bounds = {name: max(flops / PEAK_FLOPS[key[2]], nbytes / PEAK_BYTES) * 1e3
+        bounds = {name: max(flops / PEAK_FLOPS[mma_type(key[2])], nbytes / PEAK_BYTES) * 1e3
                   for name, (_, _, nbytes, flops) in cases.items()}
         kern, k5, k6 = (cases[name][0] for name in BWD_KERNELS)
         row = {"ms": time_ms(kern), "base_ms": baseline_ms(kern), "k5_ms": time_ms(k5),
@@ -2301,6 +2333,234 @@ def torchrun_phase(card: str, ckpt: str, tmp: str, train_keys: dict, phase10: di
     torch.cuda.empty_cache()
 
 
+# Phase 21: the legacy nets at full width, f32, batch 64 (EDM's generate.py
+# default), random weights randn * 0.1 from seed 0 (EDM's zero-initialised
+# output convs would otherwise give outputs of about 0).
+LEGACY_BATCH = 64
+LEGACY_NETS = {
+    # NVlabs/edm train.py --arch=ddpmpp (--cond=1): VPPrecond(SongUNet), CIFAR-10.
+    "edm-cifar10-ddpmpp": dict(
+        precond="vp", net="SongUNet", res=32, label_dim=10,
+        kw=dict(img_resolution=32, in_channels=3, out_channels=3, label_dim=10, augment_dim=9,
+                model_channels=128, channel_mult=(2, 2, 2), num_blocks=4,
+                attn_resolutions=(16,), embedding_type="positional", encoder_type="standard",
+                decoder_type="standard", resample_filter=(1, 1))),
+    # NVlabs/edm train.py --arch=ncsnpp (--cond=0): VEPrecond(SongUNet), CIFAR-10.
+    "edm-cifar10-ncsnpp": dict(
+        precond="ve", net="SongUNet", res=32, label_dim=0,
+        kw=dict(img_resolution=32, in_channels=3, out_channels=3, augment_dim=9,
+                model_channels=128, channel_mult=(2, 2, 2), num_blocks=4,
+                attn_resolutions=(16,), embedding_type="fourier", channel_mult_noise=2,
+                encoder_type="residual", decoder_type="skip", resample_filter=(1, 3, 3, 1))),
+    # NVlabs/edm train.py --arch=adm: EDMPrecond(DhariwalUNet), ImageNet-64, 1000 classes.
+    "edm-imagenet64-adm": dict(
+        precond="edm", net="DhariwalUNet", res=64, label_dim=1000,
+        kw=dict(img_resolution=64, in_channels=3, out_channels=3, label_dim=1000,
+                model_channels=192, channel_mult=(1, 2, 3, 4), num_blocks=3,
+                attn_resolutions=(32, 16, 8))),
+    # The JAX Generator's defaults (sid_lsg_tpu/models/stylegan_t.py:394-403, after the
+    # reference's networks/generator.py:559), conditioned on a CLIP ViT-L/14 text embedding.
+    "stylegan-t-64": dict(
+        net="Generator", res=64,
+        kw=dict(z_dim=64, c_dim=768, img_resolution=64, channel_base=32768, channel_max=512,
+                num_res_blocks=3)),
+}
+# The same nets cut to the CPU tests' tiny sizes, for the card-vs-CPU check.
+LEGACY_TINY = {
+    "edm-cifar10-ddpmpp": dict(img_resolution=16, model_channels=16, channel_mult=(1, 2),
+                               num_blocks=1, attn_resolutions=(8,)),
+    "edm-cifar10-ncsnpp": dict(img_resolution=16, model_channels=16, channel_mult=(1, 2),
+                               num_blocks=1, attn_resolutions=(8,)),
+    "edm-imagenet64-adm": dict(img_resolution=16, model_channels=32, channel_mult=(1, 4),
+                               num_blocks=1, attn_resolutions=(8,), label_dim=4),
+    "stylegan-t-64": dict(z_dim=16, c_dim=8, img_resolution=16, channel_base=512, channel_max=64,
+                          num_res_blocks=1),
+}
+LEGACY_KERNELS = ("flash_attn_fwd", "bias_act") + GN_KERNELS
+LEGACY_TIMED = 10
+LEGACY_K7_ROUNDS = 3  # phase 16 takes K7_ROUNDS; the legacy pass has 38 keys
+
+
+def legacy_net(name: str, tiny: bool, device: str, seed: int):
+    """(module, inputs maker) of one legacy net: the preconditioned EDM net or
+    the StyleGAN-T generator, weights randn * 0.1 from ``seed``, in eval()."""
+    import torch
+
+    from sid_lsg_torch.models import edm_networks, stylegan_t
+
+    spec = LEGACY_NETS[name]
+    kw = dict(spec["kw"], **(LEGACY_TINY[name] if tiny else {}))
+    with torch.device(device):
+        if spec["net"] == "Generator":
+            net = stylegan_t.Generator(**kw)
+        else:
+            net = edm_networks.PRECONDS[spec["precond"]](getattr(edm_networks, spec["net"])(**kw))
+    net = net.to(device).eval()
+    g = torch.Generator(device).manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=device) * 0.1)
+        for m in net.modules():  # NCSN++'s Fourier frequencies: a buffer, randn * 16
+            if isinstance(m, edm_networks.FourierEmbedding):
+                m.reset_parameters(g)
+    res, labels = kw["img_resolution"], kw.get("label_dim", 0)
+
+    def inputs(batch: int, seed: int, dev: str):
+        gi = torch.Generator().manual_seed(seed)
+        if spec["net"] == "Generator":
+            z = torch.randn(batch, kw["z_dim"], generator=gi)
+            c = torch.randn(batch, kw["c_dim"], generator=gi)
+            return (z.to(dev), c.to(dev))
+        x = torch.randn(batch, 3, res, res, generator=gi)
+        sigma = (torch.randn(batch, generator=gi) * 1.2 - 1.2).exp()
+        y = (torch.nn.functional.one_hot(torch.randint(labels, (batch,), generator=gi), labels)
+             .float() if labels else None)
+        return tuple(t if t is None else t.to(dev) for t in (x * sigma[:, None, None, None],
+                                                             sigma, y))
+
+    return net, inputs
+
+
+def legacy_phase(card: str, gen) -> dict:
+    """Phase 21: the legacy nets (``models/edm_networks.py`` under their
+    preconditioners, ``models/stylegan_t.py``'s generator) at full width on
+    the card, f32 with TF32 off.  Returns, per kernel it launched, the
+    summary merged into the kernels line."""
+    import torch
+
+    from sid_lsg_torch.ops import registry
+
+    t_phase = time.perf_counter()
+    nets = {name: legacy_net(name, False, "cuda", 0) for name in LEGACY_NETS}
+    noise = torch.Generator("cuda")
+
+    def forward(name):
+        net, inputs = nets[name]
+        args = inputs(LEGACY_BATCH, 1, "cuda")
+        if LEGACY_NETS[name]["net"] == "Generator":  # noise drawn from an explicit generator
+            return lambda: net(*args, rng=noise.manual_seed(2))
+        return lambda: net(*args)
+
+    runs = {name: forward(name) for name in LEGACY_NETS}
+    with torch.inference_mode():
+        for name, run in runs.items():  # warm-up
+            out = run()
+            torch.cuda.synchronize()
+            res = LEGACY_NETS[name]["res"]
+            require(out.shape == (LEGACY_BATCH, 3, res, res) and bool(torch.isfinite(out).all()),
+                    f"{name}: output {tuple(out.shape)} not finite or of the wrong shape")
+            std = out.float().flatten(1).std(dim=1)
+            require(bool((std > 0).all()), f"{name}: constant output(s)")
+            print(f"[legacy] {name}: output {tuple(out.shape)} finite, per-sample std "
+                  f"{std.min().item():.4e}-{std.max().item():.4e}")
+        # The path: counters zeroed, one forward of each net, every kernel launched.
+        registry.reset()
+        per_net = {}
+        with GNCalls() as gn_calls:
+            for name, run in runs.items():
+                before = registry.counts()
+                run()
+                torch.cuda.synchronize()
+                per_net[name] = {k: v - before[k] for k, v in registry.counts().items() if v - before[k]}
+        launches = registry.counts()
+        keys = {name: registry.launches_by_key(name) for name in registry.KERNELS}
+    for name, n in per_net.items():
+        print(f"[legacy] {name}: launches {n}")
+    print(f"[legacy] launches of one forward of each net: {launches}")
+    for name in ("flash_attn_fwd", "bias_act", "gn_fused"):
+        require(launches[name] > 0, f"{name} was not launched by the legacy nets")
+    for name in registry.KERNELS:
+        if name not in LEGACY_KERNELS:
+            require(launches[name] == 0, f"{name} launched by a forward-only path")
+    require_gn_routes("legacy", launches, gn_calls)
+    for key in keys["flash_attn_fwd"]:
+        print(f"[legacy] K1 launched at q {key[0]} k {key[1]} {key[2]}")
+
+    # Every shape the nets launched, against its plain version.
+    max_abs = {name: 0.0 for name in LEGACY_KERNELS}
+    for name in LEGACY_KERNELS:
+        for key in sorted(keys[name], key=str):
+            err = (check_bias_act(key, gen, "legacy") if name == "bias_act"
+                   else check_forward_kernel(name, key, gen))
+            max_abs[name] = max(max_abs[name], err)
+    print(f"[legacy] kernels held to their plain versions at "
+          f"{sum(len(keys[n]) for n in LEGACY_KERNELS)} shapes: max abs errors {max_abs}")
+
+    # Tiny configs: card against CPU.
+    for name in LEGACY_NETS:
+        cpu_net, inputs = legacy_net(name, True, "cpu", 3)
+        card_net = copy.deepcopy(cpu_net).cuda()
+        args = inputs(2, 4, "cpu")
+        with torch.inference_mode():
+            ref = cpu_net(*args)
+            registry.reset()
+            got = card_net(*(a if a is None else a.cuda() for a in args)).cpu()
+            tiny_launches = {k: v for k, v in registry.counts().items() if v}
+        abs_err, _, ratio, _ = close_errors(got, ref, atol=5e-4, rtol=1e-3)
+        print(f"[legacy] tiny {name} card vs CPU: max abs {abs_err:.3e} (err/tol {ratio:.3f}); "
+              f"card launches {tiny_launches}")
+        require(ratio <= 1.0, f"tiny {name}: card disagrees with the CPU")
+        require(tiny_launches.get("bias_act", 0) > 0 and tiny_launches.get("gn_fused", 0) > 0,
+                f"tiny {name}: K7 or K8 not launched on the card")
+
+    # Seconds per forward and one traced forward of each net.
+    with torch.inference_mode():
+        for name, run in runs.items():
+            secs = []
+            for _ in range(LEGACY_TIMED):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            print(f"[legacy] {name}: seconds per forward (batch {LEGACY_BATCH}, f32) "
+                  f"{[round(s, 6) for s in secs]}, median {statistics.median(secs)} on {card}")
+            trace(f"one {name} forward", run, top=8)
+
+    # Each kernel summed over one forward of each net, beside its bound and library call.
+    out = {}
+    k1 = time_fwd_keys(keys["flash_attn_fwd"], gen, "legacy pass (SDPA f32)")
+    out["flash_attn_fwd"] = k1
+    gn = time_gn_keys(keys, gen, "legacy pass")
+    out.update({name: gn[name] for name in GN_KERNELS})
+    # ``linear_*``: K7 over the launches ``torch.add`` also computes (the
+    # linear biases), to compare like with like.  Timed as phase 16 times
+    # K7, in ``LEGACY_K7_ROUNDS`` rounds.
+    k7 = collections.defaultdict(float)
+    for key, n in sorted(keys["bias_act"].items(), key=lambda kv: str(kv[0])):
+        c = bias_act_case(key, gen)
+        row = time_bias_act(c, rounds=LEGACY_K7_ROUNDS)
+        if c["library"] is not None:
+            row["linear_ms"], row["linear_device_ms"] = row["ms"], row["device_ms"]
+        for f, v in row.items():
+            if f.endswith("_range"):
+                k7[f] = tuple(n * x + y for x, y in zip(v, k7.get(f, (0.0, 0.0))))
+            else:
+                k7[f] += n * v
+        print(f"[k7-time] legacy {key} x{n}, medians [ranges] over {LEGACY_K7_ROUNDS} rounds: "
+              f"host-paced {k7_text(row, 'ms', 1e3, 'us')}; device alone "
+              f"{k7_text(row, 'device_ms', 1e3, 'us')}; plain {row['plain_ms'] * 1e3:.3f} us; "
+              f"bound {row['bound_ms'] * 1e3:.5f} us")
+    print(f"[k7-time] K7 per legacy pass: {launches['bias_act']} launches, host-paced "
+          f"{k7_text(k7, 'ms', 1.0, 'ms')}; device alone {k7_text(k7, 'device_ms', 1.0, 'ms')}; "
+          f"bound {k7['bound_ms']:.4f} ms, plain {k7['plain_ms']:.4f} ms; over the linear "
+          f"launches alone K7 host-paced {k7['linear_ms']:.4f} device alone "
+          f"{k7['linear_device_ms']:.4f} ms against torch.add host-paced {k7['library_ms']:.4f} "
+          f"device alone {k7['library_device_ms']:.4f} ms on {card}")
+    out["bias_act"] = k7
+    summary = {}
+    for name, t in out.items():
+        summary[name] = {"launches": launches[name], "max_abs_err": max_abs[name], "ms": t["ms"],
+                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                         "bound_by": "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes",
+                         "library_ms": t["library_ms"] if name != "gn_apply" else None}
+    for f in ("device_ms", "library_device_ms", "linear_ms", "linear_device_ms"):
+        summary["bias_act"][f] = k7[f]
+    del nets, runs
+    torch.cuda.empty_cache()
+    print(f"[legacy] phase 21 took {time.perf_counter() - t_phase:.3f} s")
+    return summary
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", default=None,
@@ -2470,6 +2730,13 @@ def main(argv=None) -> int:
     loop_phases(card, ckpt, tmp)
     metric_phases(card, gen, ckpt, tmp, images)
     torchrun_phase(card, ckpt, tmp, train_keys, phase10)
+    legacy = legacy_phase(card, gen)
+    for entry in kernels:  # the legacy pass's launches join each entry's, its numbers beside
+        extra = legacy.get(entry["name"])
+        if extra:
+            entry["launches"] += extra["launches"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], extra["max_abs_err"])
+            entry["legacy"] = extra
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -17,6 +17,11 @@ filled and a missing leaf raises ``KeyError``.
 SiDA projected discriminator: its ``params`` (``head_*`` and, when present,
 ``dino``) and its ``spectral`` collection (the ``u`` vectors) become the
 state dict of ``models.stylegan_discriminator.ProjectedDiscriminator``.
+
+The legacy nets: ``normalise_edm_state_dict`` brings an EDM torch state dict
+to the keys of ``models.edm_networks``; ``edm_params_from_jax`` and
+``stylegan_t_params_from_jax`` carry the JAX package's EDM nets and
+StyleGAN-T generator.
 """
 
 from __future__ import annotations
@@ -189,6 +194,39 @@ def unet_params_from_jax(tree: dict, config: UNetConfig) -> Dict[str, torch.Tens
     return c.sd
 
 
+class _Names(_Carry):
+    """Walks the UNet as ``_Carry`` does and records, for each flax leaf
+    path, the port key it fills (each ``put`` follows its ``_leaf``)."""
+
+    def __init__(self):
+        super().__init__({})
+        self.names: Dict[str, str] = {}
+        self._path = ""
+
+    def _leaf(self, path: str) -> np.ndarray:
+        self._path = path
+        return np.zeros((1, 1, 1, 1), np.float32)
+
+    def put(self, key: str, value: np.ndarray) -> None:
+        self.names[self._path] = key
+
+
+def lora_params_from_jax(tree: dict, config: UNetConfig) -> Dict[str, torch.Tensor]:
+    """JAX LoRA factors (``{'<flax site path>': {'a': (in, r), 'b': (r, out)}}``,
+    ``training/lora.py``) -> the port's (``'<diffusers site>.a'`` / ``.b``,
+    same layouts), f32."""
+    names = _Names()
+    _unet(names, config)
+    out: Dict[str, torch.Tensor] = {}
+    for site, factors in tree.items():
+        key = names.names[f"{site}/kernel"]
+        assert key.endswith(".weight"), key
+        for f in ("a", "b"):
+            out[f"{key[:-len('weight')]}{f}"] = torch.from_numpy(
+                np.array(factors[f], dtype=np.float32))
+    return out
+
+
 def params_from_jax(tree: dict, config: SDConfig, part: str) -> Dict[str, torch.Tensor]:
     """JAX parameter tree of ``part`` ('unet' | 'vae' | 'text') -> port state dict (f32)."""
     if part == "unet":
@@ -321,3 +359,68 @@ def disc_params_from_jax(params: dict, spectral: Optional[dict],
         c.tree = params["dino"]
         _dino(c, vit_cfg)
     return c.sd
+
+
+# ---------------------------------------------------------------------------
+# The legacy nets: EDM's SongUNet / DhariwalUNet and the StyleGAN-T generator
+
+
+def _flat(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flat(v, path))
+        else:
+            out[path] = np.array(v, dtype=np.float32)
+    return out
+
+
+def normalise_edm_state_dict(sd: StateDict) -> StateDict:
+    """An EDM torch state dict (a net's, or a preconditioner's with the
+    ``model.`` prefix) -> the state dict of ``models.edm_networks``'
+    SongUNet / DhariwalUNet, in f32: what the JAX ``convert_edm_unet`` does
+    before it renames.  The prefix is stripped and the constant
+    ``resample_filter`` buffers and iDDPM's ``u`` table are dropped (the
+    port's modules rebuild them); every other key is kept, so a strict load
+    names what does not fit."""
+    out: StateDict = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[0] == "model":
+            parts = parts[1:]
+        if parts[-1] == "resample_filter" or parts == ["u"]:
+            continue
+        out[".".join(parts)] = torch.as_tensor(value).float()
+    return out
+
+
+def edm_params_from_jax(tree: dict) -> StateDict:
+    """JAX ``models.edm_networks`` params -> the port's state dict (f32): the
+    inverse of the JAX ``convert_edm_unet``.  ``enc_16_block0`` becomes
+    ``enc.16x16_block0``, HWIO kernels OIHW, dense (in, out) kernels
+    (out, in), GroupNorm ``scale`` ``weight``."""
+    sd: StateDict = {}
+    for path, w in _flat(tree).items():
+        mods, leaf = path.split("/")[:-1], path.split("/")[-1]
+        head = mods[0].split("_", 2)
+        if head[0] in ("enc", "dec"):
+            mods = [head[0], f"{head[1]}x{head[1]}_{head[2]}"] + mods[1:]
+        if leaf == "kernel":
+            leaf, w = "weight", np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T
+        elif leaf == "scale":
+            leaf = "weight"
+        sd[".".join(mods + [leaf])] = torch.from_numpy(np.ascontiguousarray(w))
+    return sd
+
+
+def stylegan_t_params_from_jax(variables: dict) -> StateDict:
+    """JAX ``models.stylegan_t.Generator`` variables (``params`` and, when
+    present, ``stats``) -> the port's state dict (f32).  The port keeps the
+    JAX names and layouts, so each path's ``/`` becomes ``.``; ``stats``'
+    ``x_avg`` is the buffer ``mapping.x_avg``."""
+    sd: StateDict = {}
+    for collection in ("params", "stats"):
+        for path, w in _flat(variables.get(collection, {})).items():
+            sd[path.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(w))
+    return sd

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device
 from .layers import init_weights_
 
 FEATURE_DIM = 2048
@@ -195,11 +196,13 @@ def convert_inception(state_dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_inception(weights_path: Optional[str] = None, device="cpu",
+def load_inception(weights_path: Optional[str] = None, device="cuda",
                    seed: int = 0) -> InceptionV3Features:
     """The detector on ``device``, eval mode, frozen: converted from a torch
     weights file (``torch.load(weights_only=True)``), else random weights
-    drawn from ``seed`` (flax's default initialisers)."""
+    drawn from ``seed`` (flax's default initialisers).  ``device`` is the
+    card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     model = InceptionV3Features()
     if weights_path:
         sd = torch.load(weights_path, map_location="cpu", weights_only=True)

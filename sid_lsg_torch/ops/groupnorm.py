@@ -146,7 +146,7 @@ def gn_stats(x: torch.Tensor, num_groups: int, eps: float) -> Tuple[torch.Tensor
                                               b * num_groups, span, cluster, float(eps), code,
                                               stream)
     check(err, "gn_stats")
-    registry.record("gn_stats", (tuple(x.shape), str(x.dtype), num_groups))
+    registry.record("gn_stats", (tuple(x.shape), str(x.dtype), num_groups, float(eps)))
     return mean, rstd
 
 
@@ -195,7 +195,7 @@ def gn_fused(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_group
                                     b, c, num_groups, x.numel() // (b * c), cluster, float(eps),
                                     int(silu), code, stream)
     check(err, "gn_fused")
-    registry.record("gn_fused", (tuple(x.shape), str(x.dtype), num_groups, bool(silu)))
+    registry.record("gn_fused", (tuple(x.shape), str(x.dtype), num_groups, bool(silu), float(eps)))
     return y
 
 

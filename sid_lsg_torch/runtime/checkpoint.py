@@ -21,7 +21,10 @@ diffusers.
 ``CheckpointManager`` keeps the training-state dumps of a run (port of the
 JAX package's orbax manager, on ``torch.save``): ``<dir>/<step>/state.pt``,
 written under a temporary name and renamed into place, the newest five kept.
-A JAX orbax dump cannot be read by it.
+It does not read a JAX orbax dump: ``scripts/jax_dump_to_torch.py`` (run
+where the JAX package runs) restores one and writes it as a port dump through
+``state_from_jax``, and every reader here that meets an orbax dump raises
+naming that script.
 """
 
 from __future__ import annotations
@@ -217,6 +220,32 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> dict:
     return tree
 
 
+JAX_DUMP_SCRIPT = "scripts/jax_dump_to_torch.py"
+_CONVERT_HINT = (f"convert a JAX run's orbax dump with `python {JAX_DUMP_SCRIPT} <JAX run dir> "
+                 "<port run dir>` where the JAX package runs, then resume the port with "
+                 "--resume <port run dir>")
+
+
+def refuse_orbax(directory: str) -> None:
+    """Raise, naming the conversion script, when ``directory`` (a run
+    directory, its ``checkpoints`` or one step) holds a JAX orbax dump and
+    no port ``state.pt``."""
+    def orbax(step_dir: str) -> bool:
+        return ((os.path.isfile(os.path.join(step_dir, "_CHECKPOINT_METADATA"))
+                 or os.path.isdir(os.path.join(step_dir, "default")))
+                and not os.path.isfile(os.path.join(step_dir, CheckpointManager.FILE)))
+
+    candidates = [directory]
+    for parent in (directory, os.path.join(directory, "checkpoints")):
+        if os.path.isdir(parent):
+            candidates += [os.path.join(parent, n) for n in sorted(os.listdir(parent))
+                           if n.isdigit()]
+    found = [c for c in candidates if orbax(c)]
+    if found:
+        raise ValueError(f"{found[-1]} is a JAX orbax dump, which the port does not read: "
+                         + _CONVERT_HINT)
+
+
 def load_generator_params(path: str, unet_cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     """A generator file -> the port's UNet state dict (CPU, f32), its keys
     and shapes checked against ``unet_cfg``."""
@@ -224,10 +253,11 @@ def load_generator_params(path: str, unet_cfg: UNetConfig) -> Dict[str, torch.Te
     from ..models.unet import UNet2DCondition
 
     if os.path.isdir(path):
+        refuse_orbax(path)
         raise ValueError(f"{path} is a directory, not a generator file: a run directory of the "
-                         "port resumes its training state with --resume <run dir>, and the JAX "
-                         "package's orbax dumps cannot be read yet (ROADMAP Queue 1 item 11); "
-                         "pass a .safetensors, .pkl, .pt or .bin generator file")
+                         "port resumes its training state with --resume <run dir>; "
+                         + _CONVERT_HINT + "; or pass a .safetensors, .pkl, .pt or .bin "
+                         "generator file")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"generator file {path!r} does not exist")
     if path.endswith(".safetensors"):
@@ -393,6 +423,8 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None, template: Any = None) -> Any:
         step = self.latest_step() if step is None else step
+        if step is None or not os.path.isfile(os.path.join(self._step_dir(step), self.FILE)):
+            refuse_orbax(self.directory if step is None else self._step_dir(step))
         if step is None:
             raise FileNotFoundError(f"no training-state dump under {self.directory}")
         path = os.path.join(self._step_dir(step), self.FILE)
@@ -407,3 +439,102 @@ class CheckpointManager:
 
     def close(self) -> None:
         pass
+
+
+# ---------------------------------------------------------------------------
+# A JAX run's training state -> a port dump
+
+# What a converted dump says of itself (its ``converted_from`` entry).
+JAX_ORIGIN = ("a JAX orbax dump: the step generator and the data iterators start from their "
+              "seeds, since the two packages draw differently")
+
+
+def _np_tree(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return None if tree is None else np.asarray(tree)
+
+
+def _adam_state(opt: Any) -> dict:
+    """The Adam state (``count``, ``mu``, ``nu``) inside an optax chain's state."""
+    if isinstance(opt, dict):
+        if {"count", "nu"} <= set(opt):
+            return opt
+        found = [_adam_state(v) for v in opt.values()]
+    elif isinstance(opt, (list, tuple)):
+        found = [_adam_state(v) for v in opt]
+    else:
+        return None
+    found = [f for f in found if f is not None]
+    if len(found) > 1:
+        raise ValueError("the optimizer state holds more than one Adam state")
+    return found[0] if found else None
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def state_from_jax(tree: dict, unet_cfg: UNetConfig) -> dict:
+    """A restored JAX training dump (numpy leaves) -> the tree the port's
+    ``CheckpointManager`` writes and ``Trainer.restore_from`` reads.
+
+    ``tree`` is the JAX ``SiDState`` (``step``, ``nimg``, ``params_G``,
+    ``params_fake``, ``ema``, ``opt_G``, ``opt_fake``; the optax chains as
+    orbax restores them without a template) or, with the pixel judge,
+    ``{'state': ..., 'spectral': ...}``.  Parameters and Adam moments are
+    carried by ``models.convert`` (a full-UNet or LoRA psi; the judge's
+    heads under ``disc.``), each moment in its JAX dtype (bf16 for the
+    low-memory state); the judge's ``u`` vectors become ``spectral``.  The
+    dump has no step generator or iterator states: it says so in
+    ``converted_from``."""
+    from ..models.convert import disc_params_from_jax, lora_params_from_jax, unet_params_from_jax
+    from ..training.distill import DISC_PREFIX
+
+    tree = _np_tree(tree)
+    spectral = tree.get("spectral") if "state" in tree else None
+    st = tree["state"] if "state" in tree else tree
+
+    def unet_like(part: Any) -> Dict[str, torch.Tensor]:
+        if all("/" in k for k in part):
+            sd = lora_params_from_jax(part, unet_cfg)
+        else:
+            sd = unet_params_from_jax(part, unet_cfg)
+        dtypes = {str(a.dtype) for a in _leaves(part)}
+        if dtypes == {"bfloat16"}:
+            sd = {k: v.to(torch.bfloat16) for k, v in sd.items()}
+        elif dtypes != {"float32"}:
+            raise TypeError(f"parameters or moments in {sorted(dtypes)}; expected float32 or "
+                            "bfloat16")
+        return sd
+
+    def params(part: Any) -> Optional[Dict[str, torch.Tensor]]:
+        if part is None:
+            return None
+        if set(part) == {"psi", "disc"}:
+            heads = disc_params_from_jax(part["disc"], None, None)
+            return {**unet_like(part["psi"]), **{DISC_PREFIX + k: v for k, v in heads.items()}}
+        return unet_like(part)
+
+    def adam(opt: Any) -> dict:
+        a = _adam_state(opt)
+        if a is None:
+            raise KeyError("no Adam state (count, mu, nu) in the optimizer state")
+        return {"count": int(a["count"]), "mu": params(a.get("mu")), "nu": params(a["nu"])}
+
+    state = {"step": int(st["step"]), "nimg": float(st["nimg"]),
+             "params_G": params(st["params_G"]), "params_fake": params(st["params_fake"]),
+             "ema": params(st["ema"]), "opt_G": adam(st["opt_G"]),
+             "opt_fake": adam(st["opt_fake"])}
+    out = {"state": state, "converted_from": JAX_ORIGIN}
+    if spectral is not None:
+        heads = st["params_fake"]["disc"]
+        out["spectral"] = {k: v for k, v in disc_params_from_jax(heads, spectral, None).items()
+                           if k.endswith(".u")}
+    return out

@@ -23,7 +23,10 @@ number into a fixed key, so its state alone resumes it; this port draws every
 step from one advancing CPU generator and from the prompt (and real-latent)
 iterators, so a dump also carries their states and, with the pixel judge,
 the spectral ``u`` vectors.  A run resumed from a dump takes the same next
-step as the run that was never stopped.  ``profile_dir`` traces steps
+step as the run that was never stopped.  A JAX run's orbax dump, converted
+by ``scripts/jax_dump_to_torch.py``, carries the state alone and says so
+(``converted_from``): the generator and the iterators start from their
+seeds; an orbax dump itself is refused, naming the script.  ``profile_dir`` traces steps
 ``[profile_start_step, profile_start_step + profile_steps)`` with
 ``torch.profiler``; ``metrics`` run on the EMA generator at the snapshot
 ticks that are also metric ticks (``eval_metrics``).  After each tick the run
@@ -86,7 +89,7 @@ from ..parallel import mesh as pmesh
 from ..parallel import runtime
 from ..pipeline import SDPipeline, load_pretrained
 from ..runtime.checkpoint import (CheckpointManager, check_like, export_generator, fill_like,
-                                  load_generator_params)
+                                  load_generator_params, refuse_orbax)
 from ..utils import training_stats
 from ..utils.misc import cpu_memory_gb, peak_device_memory_gb, start_profiler_trace
 from ..utils.util import EasyDict, format_time
@@ -527,8 +530,11 @@ class Trainer:
         and the fallback warns: the ``u`` vectors stay at their start, so
         sigma is under-estimated until power iteration converges again."""
         loaded = mgr.restore(step)
+        converted = loaded.pop("converted_from", None)
         streams = {k: loaded.pop(k) for k in STREAMS if k in loaded}
         template = {"state": self._state_tree(), "rng": self.generator.get_state()}
+        if converted is not None:  # scripts/jax_dump_to_torch.py's: no generator or streams
+            del template["rng"]
         if self.disc is not None:
             template["spectral"] = spectral_buffers(self.disc)
         try:
@@ -556,6 +562,9 @@ class Trainer:
         st.step, st.nimg = int(dumped["step"]), float(dumped["nimg"])
         st.opt_G.count = int(dumped["opt_G"]["count"])
         st.opt_fake.count = int(dumped["opt_fake"]["count"])
+        if converted is not None:
+            runtime.print0(f"Resumed a dump converted from {converted}.", flush=True)
+            return
         self.generator.set_state(loaded["rng"])
         self._accept_streams(streams)
 
@@ -586,6 +595,7 @@ class Trainer:
         mgr = CheckpointManager(ckdir)
         step = mgr.latest_step()
         if step is None:
+            refuse_orbax(ckdir)
             return False
         self.restore_from(mgr, step)
         return True

@@ -12,7 +12,10 @@ JAX's; ``CLIPTokenizer`` ids against JAX's (and the word split against the
 ``regex`` package's on every assigned code point); ``load_generator_params``
 on the port's export, the JAX package's export and a reference pickle;
 ``read_png`` against Pillow; ``encode_latents`` into a corpus that
-``LatentDataset`` reads; and the ``Trainer`` resumed from a generator file.
+``LatentDataset`` reads; the ``Trainer`` resumed from a generator file; and
+a JAX orbax dump (the plain ``SiDState`` and the pixel judge's
+``{'state', 'spectral'}``) carried by ``scripts/jax_dump_to_torch.py`` and
+resumed bit for bit, with the port's refusals of an orbax dump naming it.
 
 Only this test imports ``safetensors``, ``PIL`` and ``regex`` (as the JAX
 side does): the port itself imports none of them.
@@ -364,8 +367,8 @@ def test_load_generator_params_reads_three_sources(tmp_path, pipe):
         del sys.modules["diffusers"]
     _assert_same(load_generator_params(str(tmp_path / "network-snapshot.pkl"), cfg), hf)
     assert "diffusers" not in sys.modules
-    # Refusals: a directory (orbax state) and a file with a key too many.
-    with pytest.raises(ValueError, match="item 11"):
+    # Refusals: a directory (it names the orbax converter) and a file with a key too many.
+    with pytest.raises(ValueError, match="scripts/jax_dump_to_torch.py"):
         load_generator_params(str(tmp_path), cfg)
     export_generator({**hf, "extra.weight": torch.zeros(1)}, str(tmp_path / "extra.safetensors"))
     with pytest.raises(KeyError, match="extra.weight"):
@@ -497,3 +500,116 @@ def test_trainer_resumes_from_a_generator_file(tmp_path, lora):
         _assert_same(tr_dir.state.ema, load_sd_checkpoint(FIXTURE)["unet"])
         with pytest.raises(FileNotFoundError, match="no training-state dump"):
             resume_training_state(tr_dir)
+
+
+def _jax_dump(run_dir, sida):
+    """A tiny JAX training state with every leaf drawn from a numpy seed (no
+    JAX step compiled), saved through the JAX ``CheckpointManager`` as the
+    JAX ``Trainer`` saves it; returns (the state's numpy tree, the step).
+    Without the judge both optimizers keep the low-memory state (no first
+    moment, the second in bf16)."""
+    from sid_lsg_tpu.training.state import init_state, make_optimizer
+
+    params = convert_unet({k: v.numpy() for k, v in _perturbed_unet(5).items()},
+                          jconfigs.TINY.unet)
+    fake, spectral = None, None
+    if sida:
+        from sid_lsg_tpu.models.stylegan_discriminator import TINY_VIT, ProjectedDiscriminator
+
+        res, text_dim = jconfigs.TINY.resolution, jconfigs.TINY.unet.cross_attention_dim
+        disc = ProjectedDiscriminator(c_dim=text_dim, vit=TINY_VIT, power_iters=3)
+        dvars = jax.tree_util.tree_map(  # shapes only: every leaf is drawn below
+            lambda v: np.zeros(v.shape, v.dtype),
+            jax.eval_shape(disc.init, jax.random.PRNGKey(6), jnp.zeros((1, 3, res, res)),
+                           jnp.zeros((1, text_dim))))
+        fake = {"psi": params, "disc": {k: v for k, v in dvars["params"].items() if k != "dino"}}
+        spectral = dict(dvars["spectral"])
+    opt = make_optimizer(low_mem_state=not sida)
+    state = init_state(params, opt, opt, params_fake=fake)
+    rs = np.random.RandomState(7)
+    draw = lambda a: (np.asarray(rs.randint(1, 1000), a.dtype) if np.ndim(a) == 0
+                      else rs.standard_normal(np.shape(a)).astype(a.dtype))
+    state = jax.tree_util.tree_map(draw, state)
+    tree = state if not sida else {"state": state, "spectral": jax.tree_util.tree_map(draw, spectral)}
+    step = int(state.step)
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+        json.dump({"model": "tiny"}, f)
+    mgr = jcheckpoint.CheckpointManager(os.path.join(run_dir, "checkpoints"))
+    mgr.save(step, tree)
+    mgr.wait()
+    mgr.close()
+    return jax.tree_util.tree_map(np.asarray, tree), step
+
+
+@pytest.mark.parametrize("sida", [False, True], ids=["plain_low_mem", "sida_dino"])
+def test_jax_orbax_dump_resumes_in_the_port_bit_for_bit(tmp_path, sida):
+    from sid_lsg_torch.models.convert import disc_params_from_jax
+    from sid_lsg_tpu.models.convert import export_unet
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+    try:
+        import jax_dump_to_torch
+    finally:
+        sys.path.pop(0)
+    jdir, pdir = str(tmp_path / "jax_run"), str(tmp_path / "port_run")
+    tree, step = _jax_dump(jdir, sida)
+    base = dict(model="tiny", device="cpu", batch_size=2, microbatch=2, total_kimg=1,
+                kimg_per_tick=0, state_dump_ticks=0, use_bf16=False, seed=3,
+                low_mem_opt=not sida)
+    if sida:
+        base.update(adv_weight_G=0.1, adv_weight_D=0.1, adv_tower="dino", adv_vit="tiny")
+
+    # The port refuses the orbax dump itself, naming the script.
+    tr = Trainer(TrainConfig(run_dir=str(tmp_path / "r0"), resume=jdir, **base))
+    with pytest.raises(ValueError, match="scripts/jax_dump_to_torch.py"):
+        resume_training_state(tr)
+    with pytest.raises(ValueError, match="scripts/jax_dump_to_torch.py"):
+        Trainer(TrainConfig(run_dir=jdir, resume="latest", **base)).restore_state()
+    with pytest.raises(ValueError, match="scripts/jax_dump_to_torch.py"):
+        load_generator_params(os.path.join(jdir, "checkpoints", str(step)), configs.TINY.unet)
+
+    path = jax_dump_to_torch.main([jdir, pdir])
+    assert path == os.path.join(pdir, "checkpoints", str(step), "state.pt")
+    tr = Trainer(TrainConfig(run_dir=str(tmp_path / "r1"), resume=pdir, **base))
+    rng_before = tr.generator.get_state()
+    resume_training_state(tr)
+    st, jst = tr.state, tree["state"] if sida else tree
+    assert torch.equal(tr.generator.get_state(), rng_before)  # starts from its seed
+
+    def want(part):  # the JAX tree under the port's names: the JAX exporter's HF keys
+        if sida and "psi" in part:
+            heads = disc_params_from_jax(part["disc"], None, None)
+            return {**export_unet(part["psi"], jconfigs.TINY.unet),
+                    **{"disc." + k: v.numpy() for k, v in heads.items()}}
+        return export_unet(part, jconfigs.TINY.unet)
+
+    def same(got, part):
+        if part is None:  # the low-memory state's first moment
+            assert got is None
+            return
+        ref = want(part)
+        assert sorted(got) == sorted(ref)
+        for k, v in got.items():
+            assert str(v.dtype).split(".")[1] == str(np.asarray(ref[k]).dtype), k
+            assert torch.equal(v.detach().float(),
+                               torch.from_numpy(np.asarray(ref[k], np.float32))), k
+
+    assert (st.step, st.nimg) == (int(jst.step), float(jst.nimg))
+    for name in ("params_G", "params_fake", "ema"):
+        same(getattr(st, name), getattr(jst, name))
+    for name in ("opt_G", "opt_fake"):
+        adam = next(a for a in jax.tree_util.tree_leaves(
+            getattr(jst, name), is_leaf=lambda a: hasattr(a, "nu")) if hasattr(a, "nu"))
+        assert getattr(st, name).count == int(adam.count)
+        same(getattr(st, name).mu, adam.mu)
+        same(getattr(st, name).nu, adam.nu)
+    if sida:
+        from sid_lsg_torch.models.stylegan_discriminator import spectral_buffers
+
+        u = spectral_buffers(tr.disc)
+        ref = {k: v for k, v in disc_params_from_jax(jst.params_fake["disc"], tree["spectral"],
+                                                     None).items() if k.endswith(".u")}
+        assert sorted(u) == sorted(ref) and u
+        for k in u:
+            assert torch.equal(u[k], ref[k]), k

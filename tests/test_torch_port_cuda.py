@@ -3,7 +3,8 @@ K3 GroupNorm apply, K4 fused flash backward, K5 + K6 two-pass flash
 backward (bit for bit the same on two runs), K7 bias + activation on both
 of its routes, K8 one-launch GroupNorm(+SiLU)) against
 their plain PyTorch versions, and UNet gradients through them against the
-CPU's, on the card.
+CPU's, on the card; the legacy nets' shapes (EDM's SongUNet and
+DhariwalUNet, the StyleGAN-T generator) and the tiny nets against the CPU.
 
 Needs a CUDA device, ``nvcc`` and no JAX; skips where torch finds no card.
 On the card's machine run it without the JAX-importing conftest:
@@ -495,3 +496,92 @@ def test_unet_gradients_on_the_card_match_the_cpu(dev):
     for name, a, b in zip(names, grads["cuda"], grads["cpu"]):
         scale = max(float(b.abs().max()), 1e-8)
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * scale, msg=name)
+
+
+# The legacy nets' shapes at full width, f32, batch 64 (``chip_smoke.py``
+# phase 21): K1 over SongUNet's one head of 256 channels at 16x16 and 8x8
+# and DhariwalUNet's 6 / 9 / 12 heads of 64; K7 as every EDM conv's linear
+# bias and StyleGAN-T's leaky ReLU (gain sqrt(2) times 1 or sqrt(1/2), clamp
+# 256 times the same); K8 with EDM's eps 1e-6 and StyleGAN-T's residual norm.
+@pytest.mark.parametrize("b,h,s,d", [(64, 1, 256, 256), (64, 1, 64, 256), (64, 6, 1024, 64),
+                                     (64, 9, 256, 64), (64, 12, 64, 64)])
+def test_flash_attn_fwd_at_the_legacy_shapes(dev, b, h, s, d):
+    g = torch.Generator(dev).manual_seed(21)
+    q, k = (torch.randn(b, h, s, d, generator=g, device=dev) for _ in range(2))
+    v = torch.randn(b, h, s, d, generator=g, device=dev) * math.sqrt(s / math.e)
+    out, lse = ops.flash_attn_fwd(q, k, v)
+    ref, ref_lse = ops.attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert_close(out, ref, torch.float32)
+    assert_close(lse, ref_lse, torch.float32)
+
+
+@pytest.mark.parametrize("shape,act,gain,clamp", [
+    ((64, 256, 32, 32), "linear", None, None),
+    ((64, 768, 8, 8), "linear", None, None),
+    ((64, 192, 64, 64), "linear", None, None),
+    ((64, 512, 8, 8), "lrelu", math.sqrt(2), 256.0),
+    ((64, 512, 64, 64), "lrelu", math.sqrt(2) * math.sqrt(0.5), 256.0 * math.sqrt(0.5)),
+    ((64, 3, 64, 64), "linear", None, 256.0),
+])
+def test_bias_act_at_the_legacy_shapes(dev, shape, act, gain, clamp):
+    g = torch.Generator(dev).manual_seed(22)
+    x = torch.randn(shape, generator=g, device=dev) * 200
+    b = torch.randn(shape[1], generator=g, device=dev)
+    y = ops.bias_act_fwd(x, b, 1, act, gain=gain, clamp=clamp)
+    torch.cuda.synchronize()
+    assert_close(y, ops.bias_act_ref(x, b, 1, act, gain=gain, clamp=clamp), torch.float32)
+
+
+@pytest.mark.parametrize("shape,groups,eps,silu", [
+    ((64, 256, 32, 32), 32, 1e-6, True),
+    ((64, 512, 16, 16), 32, 1e-6, True),
+    ((64, 1344, 8, 8), 32, 1e-5, True),
+    ((64, 192, 64, 64), 32, 1e-5, False),
+    ((64, 512, 64, 64), 32, 1e-5, False),
+])
+def test_group_norm_at_the_legacy_shapes(dev, shape, groups, eps, silu):
+    x, gamma, beta = gn_input(dev, shape, torch.float32, seed=23)
+    counts = dict(ops.registry.counts())
+    y = ops.group_norm(x, gamma, beta, groups, eps, silu)
+    torch.cuda.synchronize()
+    route = ops.gn_plan(shape, torch.float32, groups)[0]
+    launched = {k for k, v in ops.registry.counts().items() if v != counts[k]}
+    assert launched == ({"gn_fused"} if route == "fused" else {"gn_stats", "gn_apply"})
+    assert_close(y, ops.group_norm_ref(x, gamma, beta, groups, eps, silu), torch.float32)
+
+
+def test_legacy_nets_on_the_card_match_the_cpu(dev):
+    """Tiny SongUNet under VPPrecond, DhariwalUNet (two heads) under
+    EDMPrecond and the StyleGAN-T generator: card against CPU within atol
+    5e-4 / rtol 1e-3, as ``chip_smoke.py``'s tiny comparisons."""
+    from sid_lsg_torch.models import edm_networks as E
+    from sid_lsg_torch.models import stylegan_t as S
+
+    g = torch.Generator().manual_seed(0)
+    cases = [
+        (E.VPPrecond(E.SongUNet(16, 3, 3, label_dim=10, model_channels=16, channel_mult=(1, 2),
+                                num_blocks=1, attn_resolutions=(8,))), 10),
+        (E.EDMPrecond(E.DhariwalUNet(16, 3, 3, label_dim=4, model_channels=32,
+                                     channel_mult=(1, 4), num_blocks=1, attn_resolutions=(8,))), 4),
+        (S.Generator(z_dim=16, c_dim=8, img_resolution=16, channel_base=512, channel_max=64,
+                     num_res_blocks=1), None),
+    ]
+    for net, labels in cases:
+        net = net.eval()
+        with torch.no_grad():
+            for p in net.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        if labels is None:
+            args = (torch.randn(2, 16, generator=g), torch.randn(2, 8, generator=g))
+        else:
+            sigma = torch.tensor([0.3, 4.0])
+            args = (torch.randn(2, 3, 16, 16, generator=g) * sigma[:, None, None, None], sigma,
+                    torch.eye(labels)[:2])
+        with torch.no_grad():
+            ref = net(*args)
+            before = dict(ops.registry.counts())
+            got = net.to(dev)(*(a.to(dev) for a in args)).cpu()
+        launched = {k for k, v in ops.registry.counts().items() if v != before[k]}
+        assert {"bias_act", "gn_fused"} <= launched
+        torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)

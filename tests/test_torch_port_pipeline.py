@@ -89,11 +89,39 @@ def test_port_imports_without_jax():
         "import sid_lsg_torch.cli.sid_metrics, sid_lsg_torch.data.mscoco\n"
         "import sid_lsg_torch.models.inception, sid_lsg_torch.models.clip_vision\n"
         "import sid_lsg_torch.utils.misc, sid_lsg_torch.utils.resample\n"
+        "import sid_lsg_torch.models.edm_networks, sid_lsg_torch.models.stylegan_t\n"
+        "import sid_lsg_torch.ops.upfirdn2d, sid_lsg_torch.ops.resample_conv\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_no_port_function_defaults_to_the_cpu():
+    """Every function and constructor of the port with a ``device``
+    parameter defaults to the card (or to torch's default device), never to
+    the CPU: the CPU is only where the caller asks for it."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import sid_lsg_torch
+
+    found = []
+    for info in pkgutil.walk_packages(sid_lsg_torch.__path__, "sid_lsg_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = ([obj] if inspect.isfunction(obj) else
+                   [v for v in vars(obj).values() if inspect.isfunction(v)]
+                   if inspect.isclass(obj) else [])
+            for fn in fns:
+                for pname, p in inspect.signature(fn).parameters.items():
+                    if "device" in pname and str(p.default) == "cpu":
+                        found.append(f"{info.name}.{fn.__qualname__}({pname})")
+    assert not found, found
 
 
 def test_port_sources_import_nothing_of_jax():
