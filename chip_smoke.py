@@ -19,7 +19,8 @@ seed, loaded from an HF-layout checkpoint that it writes first, through the
 CUDA kernels built from ``sid_lsg_torch/csrc``: one-step text-to-image
 generation (batch 4, 512x512, init_timestep 625; phases 2-6), the VAE
 encode and ``encode_latents`` (phases 6a-6b), the SiD-LSG distillation train
-step (phases 7-11, with ``load_generator`` and ``--resume`` in 10a), the
+step (phases 7-11, the remat policies in 7b, with ``load_generator`` and
+``--resume`` in 10a), the
 SiDA adversarial train step on the encoded corpus (phases 12-16), the
 training loop as users run it with a state dump, the profiler and resume
 (phases 17-18), the metrics (phase 19), the training CLI under torchrun
@@ -100,9 +101,27 @@ full width (phase 21).
    remat ``flash``); counters zeroed, one step (the training path's main
    run): both losses finite, G, psi and the EMA changed, K1, K4 and the
    GroupNorm kernels launched as ``gn_plan`` routes the step's maps, and
-   no K1 launch inside the backward sweep; then one step with remat ``full``,
-   where the backward sweep launches K1 once per attention of the forwards
-   that carry grad.
+   no K1 launch inside the backward sweep.
+7b. Remat ``full`` and the other policies (``REMAT_NEW``: ``dots``,
+   ``dots_no_batch``, ``attn``, ``attn_offload``), each on phase 7's
+   trainer through ``make_train_step``: first the device bytes each policy
+   (and ``flash``) keeps inside the remat blocks of one sample-forward (the
+   outputs of the ops it saves, counted in a forward at batch 1; the
+   product ops the blocks run must be those ``models/unet.py:PRODUCTS``
+   names), times the theta phase's 20 sample-forwards; then one warm step
+   each, ``full``'s first, and ``REMAT_ROUNDS`` rounds of one timed step
+   each, the order rotated a place a round and reversed every other round,
+   at microbatch 4 (2 where the reckoned bytes over the peak of ``full``'s
+   warm step would pass 90% of the card, said on its line): the median and
+   range of each policy's seconds, the order by median with the pairs whose
+   ranges overlap marked unresolved, peak device memory, finite losses, and
+   K1 once in the backward sweep per attention of the forwards with grad,
+   as many as under ``flash``.  Then one UNet forward with grad at batch 4
+   under ``attn`` and under ``attn_offload``: the device bytes held before
+   the backward must differ by at least 90% of the reckoned ``attn_out``
+   bytes, which must equal the bytes the offload copied to pinned host
+   memory; the backward runs and its gradients are finite.  Its seconds
+   are printed.
 8. Kernel check of the training path: K4, K5 and K6 against
    ``flash_attn_bwd_ref`` at every shape the step gave K4, K4 against
    K5 + K6, and the two-pass backward (``flash_attn_bwd_twopass``: one
@@ -116,7 +135,8 @@ full width (phase 21).
 9. Small reference for training: the tiny preset, f32, one psi-phase and
    one theta-phase gradient on the card and on the CPU from the same weights
    and the same CPU-generator draws: losses within rtol 1e-4, every gradient
-   tensor within rtol 1e-3 and atol 1e-4 * max|ref|.
+   tensor within rtol 1e-3 and atol 1e-4 * max|ref|; then the same under
+   each remat policy of ``REMAT_NEW`` on both sides.
 10. Train-step timing: median seconds per step over 5 steps, images/s, peak
    device memory; one step under torch.profiler (busy, idle share, top
    kernels); the step's FLOPs (FlopCounterMode plus the attention kernels'
@@ -320,6 +340,13 @@ TRAIN_ARGS = ["--outdir", "chiprun_out/train", "--sd_model", "sd15", "--batch", 
               "--remat-policy", "flash", "--max-ticks", "1"]
 TRAIN_BATCH = 4
 TIMED_STEPS = 5
+# Phase 7b: the remat policies besides `full` and `flash`, timed beside
+# `full`: one warm step each, then REMAT_ROUNDS rounds of one timed step each;
+# the theta phase's graph holds 20 sample-forwards of the UNet at microbatch
+# 4 (the generator's 4, psi's and the teacher's 8 each, CFG-doubled).
+REMAT_NEW = ("dots", "dots_no_batch", "attn", "attn_offload")
+REMAT_ROUNDS = 3
+THETA_SAMPLE_FORWARDS = 20
 TWOPASS_STEPS = 3  # timed steps of the same trainer under SIDLSG_FLASH_BWD=twopass
 # The SiDA path: the train step above with the adversarial terms through the
 # projected DINO ViT-S/16 pixel judge (random backbone), the real latents
@@ -1060,11 +1087,12 @@ class K1Sweep:
 STRUCTURAL_ZERO = ("main0.conv.bias", "main1.conv.bias")
 
 
-def tiny_train_grads(device, tower=None):
+def tiny_train_grads(device, tower=None, remat=None):
     """Phases 9 and 14 on one device: the tiny preset's psi-phase and
     theta-phase losses and gradients in f32 from fixed weights and
     CPU-generator draws; with ``tower``, the adversarial terms of that tower
-    (the pixel judge on TINY_VIT) and its heads among the psi-phase tensors."""
+    (the pixel judge on TINY_VIT) and its heads among the psi-phase tensors;
+    with ``remat``, the UNet under that remat policy."""
     import torch
 
     from sid_lsg_torch.diffusion.ddpm import DDPMScheduler, SchedulerConfig
@@ -1102,8 +1130,8 @@ def tiny_train_grads(device, tower=None):
         heads = {DISC_PREFIX + k: v.detach().clone() for k, v in head_params(disc).items()}
     encode = unet_apply_fn(TINY.unet, torch.float32, encoder_only=True) if tower == "encoder" else None
     sched = DDPMScheduler(SchedulerConfig.sd(TINY.prediction_type), device=device)
-    L = make_loss_fns(unet_apply_fn(TINY.unet, torch.float32), sched, cfg, unet_encode=encode,
-                      pixel_disc=pixel)
+    L = make_loss_fns(unet_apply_fn(TINY.unet, torch.float32, remat), sched, cfg,
+                      unet_encode=encode, pixel_disc=pixel)
     draws = torch.Generator().manual_seed(5)
     mb = 2
     z, noise, t, init_t = L.draw(draws, mb, device)
@@ -1394,15 +1422,205 @@ def generator_files_phase(ema, ckpt: str, tmp: str, train_args) -> None:
     torch.cuda.empty_cache()
 
 
+def kept_bytes(unet_cfg, params, policy: str, batch: int = 1):
+    """Device bytes that one UNet forward with grad at ``batch`` keeps
+    under ``policy`` inside its remat blocks: the outputs of the ops the
+    policy saves, summed from the shapes they run at (0 for ``full``, and
+    for ``attn_offload``, whose tensors go to host memory); and the names
+    of the product ops the blocks ran.  A dispatch mode that counts them
+    stands in for the policy's own context in each block's forward."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import sid_lsg_torch.models.unet as unet_mod
+
+    ops = unet_mod.SAVED_OPS.get(policy, frozenset())
+    seen = {"bytes": 0, "products": set()}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(w in str(func) for w in ("conv", "mm", "matmul", "linear", "gemm")):
+                seen["products"].add(str(func))
+            if func in ops:
+                seen["bytes"] += sum(t.nbytes for t in (out if isinstance(out, tuple) else (out,)))
+            return out
+
+    real = unet_mod.remat_context_fn
+    unet_mod.remat_context_fn = lambda _: (lambda: (Count(), contextlib.nullcontext()))
+    try:
+        apply = unet_mod.unet_apply_fn(unet_cfg, torch.bfloat16, policy)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        x = torch.randn(batch, 4, 64, 64, device="cuda")
+        c = torch.randn(batch, 77, unet_cfg.cross_attention_dim, device="cuda")
+        apply(leaves, x, torch.full((batch,), 500, device="cuda"), c)
+    finally:
+        unet_mod.remat_context_fn = real
+    return seen["bytes"], seen["products"]
+
+
+def forward_held_bytes(unet_cfg, params, policy: str, batch: int) -> int:
+    """Device bytes held at the end of one UNet forward with grad at
+    ``batch`` under ``policy``, before its backward (freed blocks whose
+    side-stream copies have finished returned first)."""
+    import torch
+
+    from sid_lsg_torch.models.unet import unet_apply_fn
+
+    apply = unet_apply_fn(unet_cfg, torch.bfloat16, policy)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(batch, 4, 64, 64, device="cuda", generator=gen)
+    c = torch.randn(batch, 77, unet_cfg.cross_attention_dim, device="cuda", generator=gen)
+    t = torch.full((batch,), 500, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    out = apply(leaves, x, t, c)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - base
+    out.float().square().mean().backward()  # the offloaded tensors come back
+    require(all(torch.isfinite(v.grad).all() for v in leaves.values() if v.grad is not None),
+            f"remat {policy}: a UNet gradient is not finite")
+    del out, leaves
+    return held
+
+
+def remat_phase(card: str, trainer, flash_k1: int) -> dict:
+    """Phase 7b: remat ``full`` and the policies of ``REMAT_NEW`` on phase
+    7's trainer; returns each policy's numbers."""
+    import torch
+
+    import sid_lsg_torch.models.unet as unet_mod
+    from sid_lsg_torch.training.distill import make_train_step
+
+    t_phase = time.perf_counter()
+    ucfg = trainer.pipe.config.unet
+    params = trainer.state.params_G
+    total = torch.cuda.get_device_properties(0).total_memory
+    kept = {}
+    for policy in ("full",) + REMAT_NEW + ("flash",):
+        per_sample, products = kept_bytes(ucfg, params, policy)
+        kept[policy] = per_sample
+        if policy == "dots":
+            print(f"[remat] product ops the blocks ran on the card: {sorted(products)}")
+            require(products <= {str(op) for op in unet_mod.PRODUCTS},
+                    f"product ops outside remat dots' set: {products}")
+        print(f"[remat] {policy}: keeps {per_sample} bytes a sample-forward on the device, "
+              f"{per_sample * THETA_SAMPLE_FORWARDS / 2**30:.3f} GiB over the theta phase's "
+              f"{THETA_SAMPLE_FORWARDS} sample-forwards")
+    # One step function per policy; flash, phase 7's, is timed in phase 10.
+    policies = ("full",) + REMAT_NEW
+    steps = {policy: make_train_step(unet_mod.unet_apply_fn(ucfg, torch.bfloat16, policy),
+                                     trainer.pipe.scheduler, trainer.dcfg, trainer.opt_g,
+                                     trainer.opt_fake)
+             for policy in policies}
+    mbs = {"full": TRAIN_BATCH}
+    rec = {p: {"s": [], "losses": [], "peak": 0.0, "fwd": 0, "bwd": 0} for p in policies}
+
+    def one(policy, timed: bool) -> None:
+        b = trainer.next_batch()
+        mb = mbs[policy]
+        if mb != TRAIN_BATCH:
+            b = {k: (v.reshape(-1, mb, *v.shape[2:]) if k != "uncond_emb" else v)
+                 for k, v in b.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with K1Sweep() as k1:
+            t0 = time.perf_counter()
+            trainer.state, metrics = steps[policy](trainer.state, trainer.teacher, b,
+                                                   trainer.generator)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        r = rec[policy]
+        r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated() / 2**30)
+        r["losses"].append({k: float(metrics[k]) for k in ("fake_score_loss", "g_loss")})
+        if timed:
+            r["s"].append(seconds)
+            r["fwd"] += k1.forward_grad
+            r["bwd"] += k1.backward
+        else:
+            r["warm"] = seconds
+
+    # One warm step each, full's first: its peak sets the others'
+    # microbatch.  Then rounds of one timed step each, the order rotated by
+    # one place a round and reversed every other round, so that no policy
+    # always runs first or last in a process that drifts.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    one("full", False)
+    full_peak = rec["full"]["peak"]
+    print(f"[remat] full: peak device memory {full_peak:.3f} GiB in its warm step on {card}")
+    for policy in REMAT_NEW:
+        extra = (kept[policy] - kept["full"]) * THETA_SAMPLE_FORWARDS
+        mbs[policy] = TRAIN_BATCH if full_peak * 2**30 + extra <= 0.9 * total else TRAIN_BATCH // 2
+        one(policy, False)
+    for rnd in range(REMAT_ROUNDS):
+        order = policies[rnd:] + policies[:rnd]
+        order = order[::-1] if rnd % 2 else order
+        print(f"[remat] round {rnd}: {', '.join(order)}")
+        for policy in order:
+            one(policy, True)
+    out = {}
+    for policy in policies:
+        r, mb = rec[policy], mbs[policy]
+        timed = r["s"]
+        fwd, bwd = r["fwd"] // REMAT_ROUNDS, r["bwd"] // REMAT_ROUNDS
+        out[policy] = {"mb": mb, "step_s": timed, "median_s": statistics.median(timed),
+                       "min_s": min(timed), "max_s": max(timed), "peak_gib": r["peak"],
+                       "kept_gib": kept[policy] * THETA_SAMPLE_FORWARDS / 2**30}
+        print(f"[remat] {policy}: microbatch {mb}"
+              f"{'' if mb == TRAIN_BATCH else ' (microbatch 4 would not fit: run at 2)'}; "
+              f"seconds per step median {out[policy]['median_s']:.4f} [{min(timed):.4f}-"
+              f"{max(timed):.4f}] over {REMAT_ROUNDS} interleaved rounds {timed} (warm step "
+              f"{r['warm']:.3f}), peak device memory {r['peak']:.3f} GiB beside "
+              f"{out[policy]['kept_gib']:.3f} GiB reckoned kept over the theta phase (full's warm "
+              f"step {full_peak:.3f} GiB); K1 in forwards with grad {fwd}, in the backward "
+              f"sweep {bwd} per step; losses {r['losses']} on {card}")
+        require(all(math.isfinite(x) for step_losses in r["losses"] for x in step_losses.values()),
+                f"remat {policy}: losses not finite: {r['losses']}")
+        require(bwd == fwd > 0, f"remat {policy}: not one backward-sweep K1 launch per attention")
+        require(mb < TRAIN_BATCH or fwd == flash_k1,
+                f"remat {policy}: {fwd} K1 launches in forwards with grad, remat flash {flash_k1}")
+    # The speed order by median; "<" where the two ranges do not overlap, "~"
+    # where they do (that pair's order is not resolved by this run).
+    ranked = sorted(policies, key=lambda p: out[p]["median_s"])
+    text = ranked[0]
+    for a, b in zip(ranked, ranked[1:]):
+        text += f" {'<' if out[a]['max_s'] < out[b]['min_s'] else '~'} {b}"
+    print(f"[remat] seconds per step by median: {text} on {card}")
+    out["ranking"] = text
+    del steps
+    # attn against attn_offload: what one forward leaves on the device.
+    reckoned = kept["attn"] * TRAIN_BATCH
+    held = {}
+    for policy in ("attn", "attn_offload"):
+        unet_mod.offload_stats.update(bytes=0, tensors=0)
+        held[policy] = forward_held_bytes(ucfg, params, policy, TRAIN_BATCH)
+        pinned = dict(unet_mod.offload_stats)
+        print(f"[remat] {policy}: one UNet forward with grad at batch {TRAIN_BATCH} holds "
+              f"{held[policy]} bytes on the device before its backward; pinned host bytes "
+              f"{pinned['bytes']} in {pinned['tensors']} tensors")
+    out["attn_offload"]["pinned_bytes"] = pinned["bytes"]
+    saved = held["attn"] - held["attn_offload"]
+    print(f"[remat] attn_offload holds {saved} bytes less than attn, against {reckoned} reckoned "
+          f"attn_out bytes ({saved / reckoned:.4f})")
+    require(saved >= 0.9 * reckoned, "remat attn_offload: the attention outputs stayed on the device")
+    require(pinned["bytes"] == reckoned, f"remat attn_offload: {pinned['bytes']} bytes offloaded, "
+            f"{reckoned} reckoned")
+    out["held"] = held
+    print(f"[remat] phase 7b took {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def train_phases(card: str, gen, serving_keys, ckpt: str, tmp: str):
     """Phases 7-11; returns the kernels-line entries of K4, K5 and K6, the
     step's launch keys and phase 10's numbers."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from sid_lsg_torch.models.unet import unet_apply_fn
     from sid_lsg_torch.ops import registry
-    from sid_lsg_torch.training.distill import make_train_step
 
     # 7. Train step at full width, remat flash, counters zeroed.
     train_args = with_flag(TRAIN_ARGS, "--sd_model", ckpt)
@@ -1438,25 +1656,9 @@ def train_phases(card: str, gen, serving_keys, ckpt: str, tmp: str):
         print(f"[train] {part}: {changed} of {len(old)} tensors changed")
         require(changed >= 0.99 * len(old), f"{part}: only {changed} of {len(old)} tensors changed")
     del before
-    step_full = make_train_step(unet_apply_fn(trainer.pipe.config.unet, torch.bfloat16, "full"),
-                                trainer.pipe.scheduler, trainer.dcfg, trainer.opt_g,
-                                trainer.opt_fake)
-    registry.reset()
-    full_s = []
-    with K1Sweep() as full:
-        for _ in range(2):
-            t0 = time.perf_counter()
-            trainer.state, _ = step_full(trainer.state, trainer.teacher, trainer.next_batch(),
-                                         trainer.generator)
-            torch.cuda.synchronize()
-            full_s.append(time.perf_counter() - t0)
-    full.forward_grad //= 2
-    full.backward //= 2
-    print(f"[train] remat full: K1 in forwards with grad {full.forward_grad}, in the backward "
-          f"sweep {full.backward} per step; remat flash: {sweep.forward_grad} and "
-          f"{sweep.backward}; remat full seconds per step {full_s}")
-    require(full.backward == full.forward_grad == sweep.forward_grad > 0,
-            "remat full: not one backward-sweep K1 launch per attention")
+
+    # 7b. Remat full and the other policies on the same trainer.
+    remat = remat_phase(card, trainer, sweep.forward_grad)
 
     # 8. Kernel check at the step's shapes.
     max_abs = {name: 0.0 for name in BWD_KERNELS}
@@ -1476,6 +1678,14 @@ def train_phases(card: str, gen, serving_keys, ckpt: str, tmp: str):
     for name in ("flash_attn_fwd", "flash_attn_bwd", "gn_fused"):
         require(tiny_launches[name] > 0, f"tiny train: {name} not launched on the card")
     compare_tiny("tiny-train", tiny_card, tiny_cpu)
+    t0 = time.perf_counter()
+    for policy in REMAT_NEW:
+        registry.reset()
+        tiny_card = tiny_train_grads("cuda", remat=policy)
+        launches = registry.counts()
+        require(launches["flash_attn_fwd"] > 0, f"tiny train {policy}: K1 not launched")
+        compare_tiny(f"tiny-train {policy}", tiny_card, tiny_train_grads("cpu", remat=policy))
+    print(f"[tiny-train] the four remat policies card vs CPU in {time.perf_counter() - t0:.3f} s")
 
     # 10. Train-step timing, trace, FLOPs.
     torch.cuda.reset_peak_memory_stats()
@@ -1512,6 +1722,13 @@ def train_phases(card: str, gen, serving_keys, ckpt: str, tmp: str):
     torch.cuda.empty_cache()
     phase10 = {"median_s": med, "images_per_s": TRAIN_BATCH / med, "peak_gib": peak_gib,
                "twopass_median_s": twopass["median_s"]}
+    print(f"[remat] per policy (microbatch, median [range] seconds per step over "
+          f"{REMAT_ROUNDS} interleaved rounds, peak GiB): "
+          + "; ".join(f"{p} {r['mb']}, {r['median_s']:.4f} [{r['min_s']:.4f}-{r['max_s']:.4f}], "
+                      f"{r['peak_gib']:.3f}"
+                      for p, r in remat.items() if p in ("full",) + REMAT_NEW)
+          + f"; by median {remat['ranking']}; flash in phase 10: median {med:.4f} of "
+          f"{TIMED_STEPS} Trainer.step, peak {peak_gib:.3f}; on {card}")
 
     # 11. Backward kernel timing at the step's shapes, summed over one step.
     entries = []
@@ -2567,6 +2784,7 @@ def main(argv=None) -> int:
                         help="root of another checkout whose K1, K4 and GroupNorm kernels are "
                              "timed beside this one's (built from its sid_lsg_torch/csrc)")
     baseline = parser.parse_args(argv).baseline
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2738,6 +2956,7 @@ def main(argv=None) -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], extra["max_abs_err"])
             entry["legacy"] = extra
 
+    print(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

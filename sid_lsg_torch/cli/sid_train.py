@@ -84,7 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
     a("--adv_dino", default=None, help="timm DINO ViT state dict (torch.save) for --adv_tower dino")
     a("--adv_vit", choices=["s16", "tiny"], default="s16", help="DINO backbone: ViT-S/16 or tiny")
     a("--remat-policy", dest="remat_policy", choices=REMAT_CHOICES, default="full",
-      help="With --grad-ckpt 1: 'full' or 'flash' (keeps the flash-attention outputs)")
+      help="With --grad-ckpt 1, what the UNet blocks keep for the backward: 'full' (their "
+           "inputs only), 'dots' (every matmul/conv output), 'dots_no_batch' (the dense "
+           "layers' outputs), 'attn' (the attention outputs), 'attn_offload' (the same, "
+           "in pinned host memory) or 'flash' (the flash-attention op's out and lse)")
     a("--lora_rank", type=int, default=4)
     a("--fsdp", type=int, default=1,
       help="FSDP axis size: the state sharded over groups of this many ranks")

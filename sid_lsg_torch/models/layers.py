@@ -14,6 +14,7 @@ activation dtype (see ``to_compute_dtype``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -74,6 +75,57 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(x))
 
 
+# The heads' merge as an op of its own, so that selective checkpointing sees
+# the attention output: the UNet's remat policies ``attn`` and
+# ``attn_offload`` keep what it returns (JAX tags the same tensor
+# ``attn_out``).  It is the copy that ``transpose(1, 2).reshape`` makes.
+# ``multihead_attention`` calls it only inside ``tag_attention_outputs``;
+# everywhere else the merge is that reshape.
+@torch.library.custom_op("sidlsg::merge_heads", mutates_args=(), schema="(Tensor x) -> Tensor")
+def merge_heads(x):
+    """(B, H, S, hd) -> (B, S, H*hd), a new tensor."""
+    b, h, s, hd = x.shape
+    out = x.new_empty((b, s, h * hd))
+    out.view(b, s, h, hd).copy_(x.transpose(1, 2))
+    return out
+
+
+@merge_heads.register_fake
+def _merge_heads_fake(x):
+    b, h, s, hd = x.shape
+    return x.new_empty((b, s, h * hd))
+
+
+def _merge_heads_setup(ctx, inputs, output):
+    ctx.heads = inputs[0].shape[1]
+
+
+def _merge_heads_backward(ctx, grad):
+    b, s, inner = grad.shape
+    return grad.reshape(b, s, ctx.heads, inner // ctx.heads).transpose(1, 2)
+
+
+merge_heads.register_autograd(_merge_heads_backward, setup_context=_merge_heads_setup)
+
+MERGE_HEADS_OP = torch.ops.sidlsg.merge_heads.default
+
+# A module global, not a thread-local: the remat recompute runs in the
+# autograd engine's thread on CUDA tensors.
+_tag_merge = False
+
+
+@contextlib.contextmanager
+def tag_attention_outputs(on: bool = True):
+    """While ``on``, every multi-head merge runs as ``merge_heads``, whatever
+    the head count (one head copies its (B, S, hd) output)."""
+    global _tag_merge
+    before, _tag_merge = _tag_merge, on
+    try:
+        yield
+    finally:
+        _tag_merge = before
+
+
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                         causal: bool = False) -> torch.Tensor:
     """(B, S, H*hd) projections -> (B, S_q, H*hd), heads split as (b, s, heads, hd)."""
@@ -82,6 +134,8 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_h
     hd = inner // num_heads
     split = lambda t, s: t.reshape(b, s, num_heads, hd).transpose(1, 2)
     out = ops.attention(split(q, sq), split(k, sk), split(v, sk), causal=causal)
+    if _tag_merge:
+        return merge_heads(out)
     return out.transpose(1, 2).reshape(b, sq, inner)
 
 

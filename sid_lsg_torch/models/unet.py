@@ -10,10 +10,18 @@ deepest level).
 
 Rematerialisation (JAX ``remat``/``remat_policy``): with ``remat_policy``
 set, each ``ResnetBlock2D`` and ``Transformer2D`` runs under
-``torch.utils.checkpoint`` (non-reentrant) whenever grad is enabled.
-``full`` keeps only the blocks' inputs; ``flash`` also keeps the outputs
-(out, lse) of the flash-attention op, so the backward sweep recomputes the
-projections but runs no forward attention kernel again.
+``torch.utils.checkpoint`` (non-reentrant) whenever grad is enabled, and
+keeps what the JAX policy of the same name keeps; the backward sweep
+recomputes the rest.  ``full`` keeps only the blocks' inputs; ``dots`` the
+outputs of every matrix product and convolution (JAX ``checkpoint_dots``);
+``dots_no_batch`` those of the products without batch dimensions, the
+dense layers (``dots_with_no_batch_dims_saveable``); ``attn`` the merged
+attention outputs (``layers.merge_heads``, JAX's ``attn_out``);
+``attn_offload`` the same tensors in pinned host memory (only these two
+policies' blocks merge the heads through ``merge_heads``); ``flash`` the
+outputs (out, lse) of the flash-attention op.  Only ``flash`` spares the
+sweep the forward attention kernel: the op is no product, as a
+``pallas_call`` is no ``dot_general``.
 
 ``unet_apply_fn`` gives the functional form the train step uses:
 ``apply(params, x, t, c)`` on a dict of (f32 master) tensors, cast to the
@@ -23,16 +31,19 @@ a bf16 module.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import functools
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 from torch.func import functional_call
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import FLASH_OP
 from .configs import UNetConfig
 from .layers import (
+    MERGE_HEADS_OP,
     Downsample2D,
     GroupNorm,
     ResnetBlock2D,
@@ -40,28 +51,117 @@ from .layers import (
     Transformer2D,
     Upsample2D,
     keeps_f32,
+    tag_attention_outputs,
     timestep_embedding,
 )
 
-REMAT_POLICIES = ("full", "flash")
-# The JAX package's other policies; the port raises for them (ROADMAP Queue 1 item 2).
-UNPORTED_REMAT_POLICIES = ("dots", "dots_no_batch", "attn", "attn_offload")
+REMAT_POLICIES = ("full", "dots", "dots_no_batch", "attn", "attn_offload", "flash")
+# The policies that keep the attention outputs: their blocks merge the heads
+# through ``merge_heads`` (``layers.tag_attention_outputs``).
+ATTN_POLICIES = ("attn", "attn_offload")
+
+_aten = torch.ops.aten
+# The ops whose outputs each selective policy keeps, as the dispatcher names
+# them under autograd (nn.Linear reaches ``mm`` or ``addmm``, nn.Conv2d
+# ``convolution``, on the CPU and on CUDA alike).
+NO_BATCH_PRODUCTS = frozenset({_aten.mm.default, _aten.addmm.default})
+PRODUCTS = NO_BATCH_PRODUCTS | {_aten.bmm.default, _aten.baddbmm.default,
+                                _aten.convolution.default}
+SAVED_OPS = {"dots": PRODUCTS, "dots_no_batch": NO_BATCH_PRODUCTS,
+             "attn": frozenset({MERGE_HEADS_OP}), "flash": frozenset({FLASH_OP})}
+
+# Bytes and tensors that ``attn_offload`` has copied to pinned host memory
+# (cumulative; a caller may zero them).
+offload_stats = {"bytes": 0, "tensors": 0}
+_side_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
-def _flash_policy(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op is FLASH_OP else CheckpointPolicy.PREFER_RECOMPUTE
+def _keep(saved, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _flash_context():
-    return create_selective_checkpoint_contexts(_flash_policy)
+def _to_host(t: torch.Tensor):
+    """Start ``t``'s copy into pinned host memory on a side stream -> (host
+    tensor, the copy's event).  A CPU tensor stays as it is."""
+    if t.device.type == "cpu":
+        return t, None
+    stream = _side_streams.get(t.device)
+    if stream is None:
+        stream = _side_streams[t.device] = torch.cuda.Stream(t.device)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    stream.wait_stream(torch.cuda.current_stream(t.device))
+    with torch.cuda.stream(stream):
+        host.copy_(t, non_blocking=True)
+        done = stream.record_event()
+    t.record_stream(stream)  # t's memory is reused only once the copy has read it
+    offload_stats["bytes"] += host.nbytes
+    offload_stats["tensors"] += 1
+    return host, done
+
+
+def _to_device(saved, device: torch.device) -> torch.Tensor:
+    t, done = saved
+    if done is None:
+        return t
+    torch.cuda.current_stream(device).wait_event(done)
+    return t.to(device, non_blocking=True)
+
+
+class _OffloadForward(TorchDispatchMode):
+    """The block's forward under ``attn_offload``: each ``merge_heads``
+    output goes to pinned host memory."""
+
+    def __init__(self, store: List):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is MERGE_HEADS_OP:
+            self.store.append(_to_host(out))
+        return out
+
+
+class _OffloadRecompute(TorchDispatchMode):
+    """The block's recompute under ``attn_offload``: each ``merge_heads``
+    gives back its offloaded output, in the forward's order; every other op
+    runs again."""
+
+    def __init__(self, store: List):
+        super().__init__()
+        self.store = store
+
+    def __enter__(self):
+        self.next = 0
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is not MERGE_HEADS_OP:
+            return func(*args, **(kwargs or {}))
+        saved = self.store[self.next]
+        self.next += 1
+        return _to_device(saved, args[0].device)
+
+
+def _offload_contexts():
+    store: List = []
+    return _OffloadForward(store), _OffloadRecompute(store)
+
+
+def remat_context_fn(policy: str) -> Optional[Callable]:
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``policy`` (None: keep
+    only the inputs)."""
+    if policy == "full":
+        return None
+    if policy == "attn_offload":
+        return _offload_contexts
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_keep, SAVED_OPS[policy]))
 
 
 class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig, remat_policy: Optional[str] = None):
         super().__init__()
-        if remat_policy in UNPORTED_REMAT_POLICIES:
-            raise ValueError(f"remat policy {remat_policy!r} is not ported yet (ROADMAP Queue 1 "
-                             f"item 2); the port has {REMAT_POLICIES}")
         if remat_policy not in (None,) + REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {remat_policy!r}")
         self.remat_policy = remat_policy
@@ -133,9 +233,10 @@ class UNet2DCondition(nn.Module):
         n = len(args)
 
         def run(*xs):
-            return functional_call(block, dict(zip(names, xs[n:])), xs[:n])
+            with tag_attention_outputs(self.remat_policy in ATTN_POLICIES):
+                return functional_call(block, dict(zip(names, xs[n:])), xs[:n])
 
-        context_fn = _flash_context if self.remat_policy == "flash" else None
+        context_fn = remat_context_fn(self.remat_policy)
         kwargs = {"context_fn": context_fn} if context_fn else {}
         return checkpoint(run, *args, *params, use_reentrant=False, **kwargs)
 

@@ -177,9 +177,8 @@ def resumes_state(cfg: TrainConfig) -> bool:
         cfg.resume is not None and os.path.isdir(os.path.join(cfg.resume, "checkpoints")))
 
 
-def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise ``ValueError`` for an option whose feature is not ported yet,
-    or that contradicts another."""
+def check_options(cfg: TrainConfig) -> None:
+    """Raise ``ValueError`` for an option that contradicts another."""
     if cfg.batch_size % cfg.microbatch:
         raise ValueError(f"batch_size {cfg.batch_size} is not a multiple of microbatch "
                          f"{cfg.microbatch}")
@@ -205,7 +204,7 @@ class Trainer:
     and the tick loop."""
 
     def __init__(self, cfg: TrainConfig):
-        refuse_unported(cfg)
+        check_options(cfg)
         self.cfg = cfg
         # Under torchrun: the process group (a no-op without one) and this
         # rank's card; ``mesh`` stays None for one process without torchrun.

@@ -197,7 +197,8 @@ def test_refresh_spectral_u_matches_jax(s):
         np.testing.assert_allclose(v.numpy(), ref_sd[k].numpy(), **TOL)
 
 
-@pytest.mark.parametrize("remat", [None, "full", "flash"])
+@pytest.mark.parametrize("remat", [None, "full", "dots", "dots_no_batch", "attn", "attn_offload",
+                                   "flash"])
 def test_encoder_only_matches_jax(s, remat):
     rs = np.random.RandomState(7)
     x = rs.standard_normal((B, 4, 8, 8)).astype(np.float32)

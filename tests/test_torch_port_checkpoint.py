@@ -440,13 +440,21 @@ def test_read_png_matches_pillow(tmp_path, mode):
         np.testing.assert_array_equal(read_png(path), ref)
     with Image.open(hand_path) as im:
         np.testing.assert_array_equal(np.asarray(im), img[..., 0] if ch == 1 else img)
-    # What the reader does not take raises.
+    # A palette PNG reads as Pillow reads it; a corrupt one raises.
     buf = io.BytesIO()
     Image.fromarray(img[..., 0] if ch == 1 else img, mode).convert("P").save(buf, format="PNG")
     with open(str(tmp_path / "p.png"), "wb") as f:
         f.write(buf.getvalue())
-    with pytest.raises(ValueError, match="colour type 3"):
-        read_png(str(tmp_path / "p.png"))
+    with Image.open(str(tmp_path / "p.png")) as im:
+        assert im.mode == "P"
+        ref = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(read_png(str(tmp_path / "p.png")), ref)
+    corrupt = bytearray(buf.getvalue())
+    corrupt[-20] ^= 0xFF  # inside the last IDAT
+    with open(str(tmp_path / "bad.png"), "wb") as f:
+        f.write(bytes(corrupt))
+    with pytest.raises(ValueError, match="fails its CRC"):
+        read_png(str(tmp_path / "bad.png"))
 
 
 def test_encode_latents_writes_a_corpus_the_dataset_reads(tmp_path, pipe):

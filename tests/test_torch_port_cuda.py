@@ -3,7 +3,7 @@ K3 GroupNorm apply, K4 fused flash backward, K5 + K6 two-pass flash
 backward (bit for bit the same on two runs), K7 bias + activation on both
 of its routes, K8 one-launch GroupNorm(+SiLU)) against
 their plain PyTorch versions, and UNet gradients through them against the
-CPU's, on the card; the legacy nets' shapes (EDM's SongUNet and
+CPU's, under each remat policy too, on the card; the legacy nets' shapes (EDM's SongUNet and
 DhariwalUNet, the StyleGAN-T generator) and the tiny nets against the CPU.
 
 Needs a CUDA device, ``nvcc`` and no JAX; skips where torch finds no card.
@@ -494,6 +494,34 @@ def test_unet_gradients_on_the_card_match_the_cpu(dev):
                 assert counts[name] > 0, counts
     names = ["x"] + list(params)
     for name, a, b in zip(names, grads["cuda"], grads["cpu"]):
+        scale = max(float(b.abs().max()), 1e-8)
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * scale, msg=name)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch", "attn", "attn_offload",
+                                    "flash"])
+def test_remat_policies_on_the_card_match_the_cpu(dev, policy):
+    """The tiny UNet's gradients under each remat policy on the card against
+    the CPU's with no remat, as above; under ``attn_offload`` the 8
+    attention outputs (6 at 8x8 x 32 channels, 2 at 4x4 x 64, batch 2, f32)
+    went to pinned host memory."""
+    import sid_lsg_torch.models.unet as unet_mod
+
+    params = random_state_dicts(TINY, "cpu", seed=3)["unet"]
+    rng = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 4, 8, 8, generator=rng)
+    t = torch.tensor([37, 625])
+    ctx = torch.randn(2, 77, TINY.unet.cross_attention_dim, generator=rng)
+    grads = {}
+    for device, remat in (("cpu", None), ("cuda", policy)):
+        p = {k: v.to(device).requires_grad_() for k, v in params.items()}
+        unet_mod.offload_stats.update(bytes=0, tensors=0)
+        out = unet_apply_fn(TINY.unet, torch.float32, remat)(p, x.to(device), t.to(device),
+                                                              ctx.to(device))
+        grads[device] = [g.cpu() for g in torch.autograd.grad(out.square().sum(), list(p.values()))]
+    offloaded = (8, 2 * 4 * (6 * 64 * 32 + 2 * 16 * 64)) if policy == "attn_offload" else (0, 0)
+    assert (unet_mod.offload_stats["tensors"], unet_mod.offload_stats["bytes"]) == offloaded
+    for name, a, b in zip(params, grads["cuda"], grads["cpu"]):
         scale = max(float(b.abs().max()), 1e-8)
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * scale, msg=name)
 

@@ -1,7 +1,6 @@
 """The port's training CLI on the CPU: run-dir artifacts, the snapshot read
 back by the JAX package, the ``Trainer`` with each SiDA tower and a timm
-DINO state dict, and its refusal of what is not ported yet (the remat
-policies other than ``full`` and ``flash``).
+DINO state dict.
 
 The run is the CLI's ``main`` on the tiny preset (4 images per step in two
 accumulation rounds, a tick per step, 3 ticks, f32, a snapshot per tick),
@@ -88,18 +87,6 @@ def test_training_modules_import_without_jax():
             "       and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
-
-
-@pytest.mark.parametrize("field,value,item", [
-    ("remat_policy", "dots", "item 2"),
-])
-def test_trainer_refuses_what_is_not_ported(field, value, item):
-    kw = dict(model="tiny", device="cpu", batch_size=4, microbatch=2, total_kimg=1,
-              kimg_per_tick=0, state_dump_ticks=0, gradient_checkpointing=True)
-    kw[field] = value
-    cfg = TrainConfig(**kw)
-    with pytest.raises(ValueError, match=f"not ported yet \\(ROADMAP Queue 1 {item}\\)"):
-        Trainer(cfg)
 
 
 def test_trainer_steps_with_a_bf16_teacher():

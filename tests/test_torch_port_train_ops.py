@@ -8,8 +8,8 @@
   picks the port's backward as it picks the JAX one.
 - GroupNorm(+SiLU) gradients against the VJP of ``_group_norm_ref``.
 - ``sid_denoise``, ``snr`` and ``get_velocity`` against JAX.
-- UNet remat: policies ``full`` and ``flash`` give the gradients of no
-  remat, and ``flash`` runs each forward attention once.
+- UNet remat: each of the six policies against JAX and against no remat,
+  with K1's launches, is held in ``tests/test_torch_port_remat.py``.
 
 Inputs come from numpy seeds.  Tolerances (f32): forward atol 2e-5 / rtol
 1e-4; gradients atol 5e-5 / rtol 1e-3 (``tests/test_pallas_parity.py``).
@@ -34,9 +34,6 @@ from sid_lsg_tpu.ops.groupnorm import _group_norm_ref  # noqa: E402
 from sid_lsg_torch import ops  # noqa: E402
 from sid_lsg_torch.diffusion.ddpm import DDPMScheduler, SchedulerConfig, compute_snr  # noqa: E402
 from sid_lsg_torch.diffusion.sampling import sid_denoise  # noqa: E402
-from sid_lsg_torch.models import TINY  # noqa: E402
-from sid_lsg_torch.models.unet import unet_apply_fn  # noqa: E402
-from sid_lsg_torch.pipeline import random_state_dicts  # noqa: E402
 
 torch.set_num_threads(2)
 F32 = dict(atol=2e-5, rtol=1e-4)
@@ -161,39 +158,3 @@ def test_snr_velocity_and_sid_denoise_match_jax(pred):
                               torch.from_numpy(unc), torch.from_numpy(t), sched,
                               guidance_scale=scale, predict_x0=x0)
             np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **F32)
-
-
-def test_remat_policies_keep_gradients_and_flash_runs_attention_once(monkeypatch):
-    attn_mod = sys.modules["sid_lsg_torch.ops.attention"]
-    calls = {"n": 0}
-    fwd = attn_mod.flash_attn_fwd
-
-    def counting(*args, **kwargs):
-        calls["n"] += 1
-        return fwd(*args, **kwargs)
-
-    monkeypatch.setattr(attn_mod, "flash_attn_fwd", counting)
-    params = {k: v.requires_grad_() for k, v in random_state_dicts(TINY, "cpu", seed=1)["unet"].items()}
-    rng = torch.Generator().manual_seed(2)
-    x, c = torch.randn(2, 4, 8, 8, generator=rng), torch.randn(2, 77, 32, generator=rng)
-    t = torch.tensor([10, 700])
-    results = {}
-    for policy in (None, "full", "flash"):
-        calls["n"] = 0
-        out = unet_apply_fn(TINY.unet, torch.float32, policy)(params, x, t, c)
-        grads = torch.autograd.grad(out.square().sum(), list(params.values()))
-        results[policy] = (out.detach(), grads, calls["n"])
-    n_attn = 8  # tiny UNet: 4 transformers, self + cross attention each
-    assert results[None][2] == n_attn
-    assert results["full"][2] == 2 * n_attn  # forward + the backward sweep's recompute
-    assert results["flash"][2] == n_attn  # out and lse kept: no recompute
-    for policy in ("full", "flash"):
-        torch.testing.assert_close(results[policy][0], results[None][0], atol=0, rtol=0)
-        for a, b in zip(results[policy][1], results[None][1]):
-            torch.testing.assert_close(a, b, atol=0, rtol=0)
-
-
-def test_unported_remat_policies_raise():
-    for policy in ("dots", "dots_no_batch", "attn", "attn_offload"):
-        with pytest.raises(ValueError, match="not ported"):
-            unet_apply_fn(TINY.unet, torch.float32, policy)
