@@ -24,8 +24,8 @@ step (phases 7-11, the remat policies in 7b, with ``load_generator`` and
 SiDA adversarial train step on the encoded corpus (phases 12-16), the
 training loop as users run it with a state dump, the profiler and resume
 (phases 17-18), the metrics (phase 19), the training CLI under torchrun
-at world size 1 (phase 20) and the legacy nets, EDM's and StyleGAN-T's, at
-full width (phase 21).
+at world size 1 (phase 20), the legacy nets, EDM's and StyleGAN-T's, at
+full width (phase 21) and the eval-set tools feeding the metrics (phase 22).
 
 1. Build: compile the kernels with nvcc for sm_90a; print the build time,
    the card's name and power limit, the registers and spills of K1's, K4's,
@@ -268,6 +268,29 @@ full width (phase 21).
    phase 16, over ``LEGACY_K7_ROUNDS`` rounds).  The pass's
    launches join each kernel's entry of the kernels line, its numbers under
    the entry's ``legacy`` key.
+22. The eval-set tools, in this process: ``cocodataset_tool`` (``main``)
+   to a folder and to a zip at 256, with ``--captions-out``, on 15 PNGs cut
+   from phase 5's images at ``COCO_SHAPES`` and annotations in
+   ``captions_val2014.json`` layout (16 ids not in file order, one file
+   absent, ids with two captions): 15 pairs, each PNG ``resize_uint8`` of its
+   centre crop, folder and zip the same, the captions file the first caption
+   of each written id in id order.  ``generate_onestep.main`` with
+   ``--repo_id`` the phase-1b checkpoint, ``--network`` phase 10a's
+   snapshot, ``--seeds 0-7 --batch 4 --enable_compress_npz true`` and those
+   captions, the counters zeroed: K1, K8, K2 and K3 launched, no backward
+   kernel and no K7; ``arr_0`` (8, 512, 512, 3) uint8 equal to the PNGs in
+   sorted order.  ``dataset_tool.main`` on that npz at ``--resolution 256``
+   into a zip (``resize_uint8`` of ``arr_0``, read back by
+   ``CocoCaptionDataset``) and on the coco folder into a folder (the same
+   pixels), ``dataset.json`` ``{"labels": null}``.  ``sid_metrics.main
+   --metrics fid_test --data <the coco zip> --num 8`` on the same checkpoint
+   and snapshot (random InceptionV3), the counters zeroed: a finite fid,
+   K1, K8, K2 and K3 launched.  Every K1, K8, K2 and K3 shape of the two runs
+   that no earlier phase checked is held to its plain version with phase
+   3's gate.  Printed: seconds of each tool, of the generation (a batch)
+   and of the packing, and of the phase.  The two runs' launches join
+   each serving kernel's entry of the kernels line, also under its
+   ``evaldata`` key.
 
 Any failure raises and exits non-zero.  The last line is the result object.
 """
@@ -280,6 +303,7 @@ import collections
 import contextlib
 import copy
 import ctypes
+import io
 import json
 import math
 import os
@@ -292,6 +316,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 PROMPTS = [
@@ -2550,6 +2575,261 @@ def torchrun_phase(card: str, ckpt: str, tmp: str, train_keys: dict, phase10: di
     torch.cuda.empty_cache()
 
 
+# Phase 22: the eval-set tools.  The 15 COCO stand-ins are cut from phase 5's
+# images at these (height, width), with odd and even size differences.
+COCO_SHAPES = ((512, 384), (384, 512), (300, 511), (511, 300), (512, 512), (257, 400), (400, 257),
+               (333, 334), (512, 301), (480, 481), (384, 384), (299, 512), (512, 299), (256, 300),
+               (301, 256))
+EVAL_RES = 256
+EVALDATA_SEEDS = "0-7"
+EVALDATA_BATCH = 4
+
+
+def write_coco_sources(images, root: str) -> str:
+    """Phase 22's COCO val2014 stand-in: 15 PNGs cut from phase 5's images at
+    ``COCO_SHAPES`` (each image turned a quarter more every four), and
+    annotations in ``captions_val2014.json`` layout with 16 ids not in file
+    order: 15 name the PNGs, one an absent file; every fifth id has a second
+    caption, listed before its own.  Returns the annotations' path."""
+    import numpy as np
+
+    from sid_lsg_torch.cli.pngio import write_png
+
+    os.makedirs(root)
+    host = images.cpu().numpy()
+    ids = [100 + 3 * ((37 * i) % 16) for i in range(16)]
+    entries, anns = [], []
+    for i, image_id in enumerate(ids):
+        name = f"COCO_val2014_{image_id:012d}.png"
+        entries.append({"id": image_id, "file_name": name})
+        anns.append({"image_id": image_id, "id": len(anns),
+                     "caption": f"  {PROMPTS[i % len(PROMPTS)]}, view {i}\n"})
+        if i % 5 == 0:
+            anns.insert(0, {"image_id": image_id, "id": len(anns), "caption": f"view {i}, listed first"})
+        if i < len(COCO_SHAPES):
+            h, w = COCO_SHAPES[i]
+            cut = np.rot90(host[i % len(host)], k=i // len(host))[:h, :w]
+            write_png(os.path.join(root, name), np.ascontiguousarray(cut))
+    path = os.path.join(root, "captions_val2014.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"images": entries, "annotations": anns}, f)
+    return path
+
+
+class _StampedLines(io.TextIOBase):
+    """A text stream that passes its text on to ``out`` and keeps each whole
+    line with the time it was written, in ``lines``."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._part = out, [], ""
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        *done, self._part = (self._part + text).split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def time_of(self, prefix: str) -> float:
+        """The time of the last line that starts with ``prefix``."""
+        times = [t for t, line in self.lines if line.startswith(prefix)]
+        require(bool(times), f"no printed line starts with {prefix!r}")
+        return times[-1]
+
+
+def evaldata_phase(card: str, gen, ckpt: str, tmp: str, images, checked: dict) -> dict:
+    """Phase 22: ``cocodataset_tool``, ``generate_onestep --enable_compress_npz``,
+    ``dataset_tool`` and ``sid_metrics`` on what they wrote.  Returns per
+    serving kernel the launches of the generation and the metric run and the
+    largest error of the shapes they added."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from sid_lsg_torch.cli import cocodataset_tool, dataset_tool, generate_onestep, sid_metrics
+    from sid_lsg_torch.cli.pngio import decode_png, read_png
+    from sid_lsg_torch.data.mscoco import CocoCaptionDataset
+    from sid_lsg_torch.metrics.detectors import inception_detector
+    from sid_lsg_torch.metrics.feature_stats import FeatureStats
+    from sid_lsg_torch.ops import registry
+    from sid_lsg_torch.utils.resample import resize_uint8
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "evaldata")
+    snapshot = os.path.join(tmp, "network-snapshot-1-000000.safetensors")  # phase 10a's
+    seconds = {}
+
+    # b. convert_coco to a folder and to a zip, with the caption corpus.
+    src = os.path.join(root, "val2014")
+    ann_path = write_coco_sources(images, src)
+    coco_dir, coco_zip = os.path.join(root, "coco256"), os.path.join(root, "coco256.zip")
+    caps = [os.path.join(root, "captions.txt"), os.path.join(root, "captions_zip.txt")]
+    t0 = time.perf_counter()
+    n_dir = cocodataset_tool.main(["--source", src, "--annotations", ann_path, "--dest", coco_dir,
+                                   "--resolution", str(EVAL_RES), "--captions-out", caps[0]])
+    n_zip = cocodataset_tool.main(["--source", src, "--annotations", ann_path, "--dest", coco_zip,
+                                   "--resolution", str(EVAL_RES), "--captions-out", caps[1]])
+    seconds["convert_coco"] = time.perf_counter() - t0
+    with open(ann_path, encoding="utf-8") as f:
+        ann = json.load(f)
+    first = {}
+    for a in ann["annotations"]:
+        first.setdefault(a["image_id"], a["caption"].strip())
+    file_of = {e["id"]: e["file_name"] for e in ann["images"]}
+    written = [i for i in sorted(first) if os.path.exists(os.path.join(src, file_of[i]))]
+    require(n_dir == n_zip == len(written) == len(COCO_SHAPES),
+            f"convert_coco wrote {n_dir} / {n_zip} pairs of {len(COCO_SHAPES)}")
+    lines = [Path(p).read_text(encoding="utf-8").splitlines() for p in caps]
+    require(lines[0] == lines[1] == [first[i] for i in written],
+            "the captions file is not the first caption of each written id in id order")
+    with zipfile.ZipFile(coco_zip) as zf:
+        require(all(z.compress_type == zipfile.ZIP_STORED for z in zf.infolist()), "zip not stored")
+        for k, image_id in enumerate(written):
+            img = read_png(os.path.join(src, file_of[image_id]))
+            h, w = img.shape[:2]
+            s = min(h, w)
+            crop = img[(h - s) // 2:(h - s) // 2 + s, (w - s) // 2:(w - s) // 2 + s]
+            want = resize_uint8(crop, (EVAL_RES, EVAL_RES), "lanczos")
+            name = f"{k:08d}"
+            require(np.array_equal(read_png(os.path.join(coco_dir, name + ".png")), want)
+                    and np.array_equal(decode_png(zf.read(name + ".png")), want),
+                    f"convert_coco {name}.png ({h}x{w}) is not resize_uint8 of its centre crop")
+            with open(os.path.join(coco_dir, name + ".txt"), encoding="utf-8") as f:
+                text = f.read()
+            require(text == zf.read(name + ".txt").decode("utf-8") == first[image_id],
+                    f"convert_coco {name}.txt")
+    print(f"[evaldata] convert_coco: {n_dir} pairs of {EVAL_RES}x{EVAL_RES} (sources "
+          f"{sorted(set(COCO_SHAPES))}), folder and zip the same pixels and texts, each PNG "
+          f"resize_uint8 of its centre crop, the captions file in id order; "
+          f"{seconds['convert_coco']:.3f} s for both")
+
+    # a. Generation through the CLI, packed into an npz.
+    # The CLI's own lines time its parts: "Generating ..." follows the
+    # checkpoint's load, "  8/8 images" the last PNG written, "packed: ..." the npz.
+    gen_dir = os.path.join(root, "gen")
+    stamped = _StampedLines(sys.stdout)
+    registry.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped):
+        generate_onestep.main(["--outdir", gen_dir, "--repo_id", ckpt, "--network", snapshot,
+                               "--seeds", EVALDATA_SEEDS, "--batch", str(EVALDATA_BATCH),
+                               "--use_bf16", "true", "--enable_compress_npz", "true",
+                               "--text_prompts", caps[0]])
+        torch.cuda.synchronize()
+    seconds["generate_onestep"] = time.perf_counter() - t0
+    written_all = stamped.time_of("  8/8 images")
+    seconds["generate"] = written_all - stamped.time_of("Generating 8 images")
+    seconds["pack"] = stamped.time_of("packed: ") - written_all
+    launches_a = registry.counts()
+    keys_a = {name: registry.launches_by_key(name) for name in SERVING_KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(all(launches_a[n] > 0 for n in SERVING_KERNELS)
+            and not any(launches_a[n] for n in BWD_KERNELS + ("bias_act",)),
+            f"generate_onestep launches {launches_a}")
+    arr = np.load(gen_dir + ".npz")["arr_0"]
+    names = sorted(os.listdir(gen_dir))
+    require(arr.shape == (8, 512, 512, 3) and arr.dtype == np.uint8 and len(names) == 8,
+            f"arr_0 {arr.shape} {arr.dtype}, {len(names)} PNGs")
+    require(all(np.array_equal(arr[i], read_png(os.path.join(gen_dir, n)))
+                for i, n in enumerate(names)), "arr_0 differs from the PNGs it packs")
+    batches = -(-8 // EVALDATA_BATCH)
+    print(f"[evaldata] generate_onestep --seeds {EVALDATA_SEEDS} --batch {EVALDATA_BATCH} "
+          f"--enable_compress_npz true: launches {launches_a}; arr_0 {arr.shape} equal to its PNGs "
+          f"in sorted order; {seconds['generate_onestep']:.3f} s in all (checkpoint load included): "
+          f"generation and PNG writing {seconds['generate']:.3f} s "
+          f"({seconds['generate'] / batches:.4f} s a batch of {EVALDATA_BATCH}), packing "
+          f"{seconds['pack']:.3f} s; on {card}")
+
+    # c. dataset_tool on the npz (resized into a zip) and on b's folder.
+    npz_zip, copy_dir = os.path.join(root, "gen256.zip"), os.path.join(root, "coco_copy")
+    t0 = time.perf_counter()
+    n_npz = dataset_tool.main(["--source", gen_dir + ".npz", "--dest", npz_zip,
+                               "--resolution", str(EVAL_RES)])
+    n_copy = dataset_tool.main(["--source", coco_dir, "--dest", copy_dir])
+    seconds["dataset_tool"] = time.perf_counter() - t0
+    want = resize_uint8(arr, (EVAL_RES, EVAL_RES), "lanczos")
+    with zipfile.ZipFile(npz_zip) as zf:
+        meta = json.loads(zf.read("dataset.json"))
+        got = np.stack([decode_png(zf.read(f"{i:08d}.png")) for i in range(n_npz)])
+    with open(os.path.join(copy_dir, "dataset.json"), encoding="utf-8") as f:
+        meta_copy = json.load(f)
+    require(n_npz == 8 and n_copy == len(written), f"dataset_tool wrote {n_npz} / {n_copy}")
+    require(meta == meta_copy == {"labels": None}, f"dataset.json {meta} / {meta_copy}")
+    require(np.array_equal(got, want), "dataset_tool's npz images are not resize_uint8 of arr_0")
+    require(all(np.array_equal(read_png(os.path.join(copy_dir, f"{k:08d}.png")),
+                               read_png(os.path.join(coco_dir, f"{k:08d}.png")))
+                for k in range(n_copy)), "dataset_tool's copy of the folder differs")
+    ds = CocoCaptionDataset(npz_zip)
+    require(len(ds) == 8 and all(np.array_equal(ds[i][0], want[i]) and ds[i][1] == ""
+                                 for i in range(8)),
+            "CocoCaptionDataset does not read dataset_tool's zip back")
+    print(f"[evaldata] dataset_tool: npz -> {n_npz} PNGs at {EVAL_RES} in a zip (resize_uint8 of "
+          f"arr_0, read back by CocoCaptionDataset), folder -> {n_copy} PNGs, dataset.json {meta}; "
+          f"{seconds['dataset_tool']:.3f} s for both")
+
+    # d. sid_metrics on b's zip, in this process.
+    out = os.path.join(root, "metrics")
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = tmp  # the real-image stats cache
+    registry.reset()
+    t0 = time.perf_counter()
+    try:
+        sid_metrics.main(["--metrics", "fid_test", "--data", coco_zip, "--repo_id", ckpt,
+                          "--network", snapshot, "--outdir", out, "--num", "8"])
+        torch.cuda.synchronize()
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+    seconds["sid_metrics"] = time.perf_counter() - t0
+    launches_d = registry.counts()
+    keys_d = {name: registry.launches_by_key(name) for name in SERVING_KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(out, "metric-fid_test.jsonl")) as f:
+        (line,) = f.read().splitlines()
+    fid = json.loads(line)["results"]["fid_test"]
+    require(math.isfinite(fid), f"sid_metrics fid_test {fid}")
+    require(all(launches_d[n] > 0 for n in SERVING_KERNELS), f"sid_metrics launches {launches_d}")
+    # The metric read the zip's 15 reals: its real-stats cache counts them, and
+    # its mean is the detector's on b's folder, much nearer than on other images.
+    (cache,) = Path(tmp, ".cache", "sid_lsg_torch").glob("real-stats-coco256-*.npz")
+    real = FeatureStats.load(str(cache))
+    detect = inception_detector(device="cuda")
+    reals = np.stack([read_png(os.path.join(coco_dir, f"{k:08d}.png")) for k in range(n_dir)])
+    want_mean = detect(reals).astype(np.float64).mean(0)
+    off_read = float(np.linalg.norm(real.get_mean_cov()[0] - want_mean))
+    off_other = float(np.linalg.norm(detect(want).astype(np.float64).mean(0) - want_mean))
+    require(real.num_items == n_dir and off_read <= 0.1 * off_other,
+            f"sid_metrics' real stats: {real.num_items} items of {n_dir}, mean off the zip's "
+            f"by {off_read} against {off_other} for dataset_tool's images")
+    print(f"[evaldata] sid_metrics --metrics fid_test --data coco256.zip --num 8: fid_test {fid}; "
+          f"its real stats count {real.num_items} images, their mean off the detector's on the "
+          f"zip's reals by {off_read:.3e} (on dataset_tool's 8 images: {off_other:.3e}); "
+          f"launches {launches_d}; {seconds['sid_metrics']:.3f} s (checkpoint load included)")
+
+    # The kernel shapes of a and d that no earlier phase held to the plain versions.
+    max_abs = dict.fromkeys(SERVING_KERNELS, 0.0)
+    for name in SERVING_KERNELS:
+        new = (set(keys_a[name]) | set(keys_d[name])) - checked[name]
+        for key in sorted(new, key=str):
+            max_abs[name] = max(max_abs[name], check_forward_kernel(name, key, gen))
+        checked[name] |= new
+        print(f"[evaldata] {name}: {len(new)} shapes checked here, "
+              f"{len(set(keys_a[name]) | set(keys_d[name])) - len(new)} checked before")
+    total = time.perf_counter() - t_phase
+    print(f"[evaldata] phase 22 in {total:.3f} s (seconds by part: "
+          f"{ {k: round(v, 3) for k, v in seconds.items()} }) on {card}")
+    return {name: {"launches": launches_a[name] + launches_d[name], "max_abs_err": max_abs[name]}
+            for name in SERVING_KERNELS}
+
+
 # Phase 21: the legacy nets at full width, f32, batch 64 (EDM's generate.py
 # default), random weights randn * 0.1 from seed 0 (EDM's zero-initialised
 # output convs would otherwise give outputs of about 0).
@@ -2955,6 +3235,13 @@ def main(argv=None) -> int:
             entry["launches"] += extra["launches"]
             entry["max_abs_err"] = max(entry["max_abs_err"], extra["max_abs_err"])
             entry["legacy"] = extra
+    evaldata = evaldata_phase(card, gen, ckpt, tmp, images, checked)
+    for entry in kernels:  # phase 22's launches join each serving kernel's entry
+        extra = evaldata.get(entry["name"])
+        if extra:
+            entry["launches"] += extra["launches"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], extra["max_abs_err"])
+            entry["evaldata"] = extra
 
     print(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -4,6 +4,8 @@
   python -m sid_lsg_torch.cli.sid_train ...          (distillation training)
   python -m sid_lsg_torch.cli.encode_latents ...     (SiDA real-latent corpus)
   python -m sid_lsg_torch.cli.sid_metrics ...        (FID, CLIP score, precision/recall, HPSv2)
+  python -m sid_lsg_torch.cli.cocodataset_tool ...   (COCO eval set: PNG + caption pairs)
+  python -m sid_lsg_torch.cli.dataset_tool ...       (image folder / zip / npz / CIFAR-10 / MNIST -> PNGs)
 """
 
 import argparse

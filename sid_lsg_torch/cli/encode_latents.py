@@ -8,7 +8,7 @@ means times the VAE's scaling factor (the space the UNet reads) as an f16
 ``<dest stem>.latents.npy`` sidecar, with the captions in ``--dest``, which
 ``data.latents.LatentDataset`` streams during training.  Every image must
 have one resolution; the tail batch is padded to the batch size.  PNG files
-are read by ``pngio.read_png``; JPEG and WebP need Pillow.
+are read by ``pngio.decode_png``; JPEG and WebP need Pillow.
 
     python -m sid_lsg_torch.cli.encode_latents --source imgs/ --dest corpus.npz --repo_id <dir>
 """
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import int_range, parse_bool
-from .pngio import read_png
+from ..data.mscoco import decode_image
 
 _EXTS = (".png", ".jpg", ".jpeg", ".webp")
 
@@ -43,12 +43,8 @@ def list_pairs(source: str) -> List[Tuple[str, str]]:
 
 def read_image(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB."""
-    if path.lower().endswith(".png"):
-        return read_png(path)
-    from PIL import Image  # JPEG and WebP only
-
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"), np.uint8)
+    with open(path, "rb") as f:
+        return decode_image(path, f.read())
 
 
 def encode_corpus(pipe, pairs: List[Tuple[str, str]], batch: int,

@@ -8,10 +8,12 @@ and a ``_numstep{n}`` suffix marks multistep runs.  ``--repo_id`` names an
 HF-layout checkpoint directory or a preset (random weights); ``--network``
 loads a distilled generator (a ``network-snapshot-*`` file of either package
 or of the reference).  Under torchrun rank p of P writes the seeds at list
-positions ``i % P == p``; rank 0 prints.
+positions ``i % P == p``; rank 0 prints.  ``--enable_compress_npz true``
+packs the written images into ``{outdir}.npz`` (key ``arr_0``) once every
+rank is done, as the reference's FID tools read them.
 
     python -m sid_lsg_torch.cli.generate_onestep --outdir out --seeds 0-63 --repo_id <dir> \\
-        --network network-snapshot-1-000100.safetensors
+        --network network-snapshot-1-000100.safetensors --enable_compress_npz true
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import argparse
 import os
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import int_range, parse_bool, parse_int_list
-from .pngio import write_png
+from .pngio import decode_png, write_png
 from ..diffusion.rng import StackedRandomGenerator
 from ..parallel import runtime
 
@@ -32,6 +35,38 @@ def read_prompt_file(path: str) -> List[str]:
     """One prompt per non-empty line."""
     with open(path, encoding="utf-8") as f:
         return [ln.strip() for ln in f if ln.strip()]
+
+
+def _packed_image(path: str) -> np.ndarray:
+    """One image as the JAX package packs it, ``np.asarray(Image.open(path))``:
+    a PNG of colour type 2 (RGB, 8 or 16 bits), which Pillow opens as RGB,
+    through ``decode_png``; a JPEG through Pillow.  Pillow opens every other
+    PNG in a mode of another shape, so those raise."""
+    if path.endswith(".png"):
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[12:16] == b"IHDR" and data[25] != 2:
+            raise ValueError(f"{path}: a PNG of colour type {data[25]} at bit depth {data[24]}; "
+                             "the npz packs colour type 2 (RGB) images alone")
+        return decode_png(data)
+    from PIL import Image  # JPEG only
+
+    return np.asarray(Image.open(path), dtype=np.uint8)
+
+
+def compress_to_npz(folder_path: str, num: int = 50000) -> str:
+    """Pack the first ``num`` images under ``folder_path`` (every ``.png``,
+    ``.jpg`` and ``.jpeg``, by sorted full path) into ``{folder_path}.npz``
+    as one ``arr_0`` stack; returns the npz's path."""
+    npz_path = f"{folder_path}.npz"
+    paths = sorted(
+        os.path.join(root, f)
+        for root, _, files in os.walk(folder_path)
+        for f in files
+        if f.endswith((".png", ".jpg", ".jpeg"))
+    )[:num]
+    np.savez(npz_path, arr_0=np.stack([_packed_image(p) for p in paths]))
+    return npz_path
 
 
 def generate_images(pipe, captions: List[str], seeds: List[int], outdir: str,
@@ -109,6 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Base SD checkpoint dir, or a preset (sd15/sd21base/tiny) with random "
                         "weights")
     p.add_argument("--use_bf16", type=parse_bool, default=True, help="bf16 activations")
+    p.add_argument("--enable_compress_npz", type=parse_bool, default=False,
+                   help="Pack the images into {outdir}.npz (arr_0) when done")
     p.add_argument("--num_steps_eval", type=int_range(1), default=1)
     p.add_argument("--custom_seed", type=parse_bool, default=False, help="Map seed list positions to caption indices")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -134,6 +171,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     process_index=runtime.get_process_index(),
                     process_count=runtime.get_process_count())
     runtime.sync_hosts("generate-done")
+    if args.enable_compress_npz and runtime.get_process_index() == 0:
+        outdir = (f"{args.outdir}_numstep{args.num_steps_eval}" if args.num_steps_eval > 1
+                  else args.outdir)
+        print(f"packed: {compress_to_npz(outdir, args.num_samples)}", flush=True)
     runtime.print0("done.", flush=True)
 
 

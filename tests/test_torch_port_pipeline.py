@@ -87,6 +87,7 @@ def test_port_imports_without_jax():
         "import sid_lsg_torch.models.tokenizer, sid_lsg_torch.runtime.checkpoint\n"
         "import sid_lsg_torch.metrics, sid_lsg_torch.metrics.detectors\n"
         "import sid_lsg_torch.cli.sid_metrics, sid_lsg_torch.data.mscoco\n"
+        "import sid_lsg_torch.cli.cocodataset_tool, sid_lsg_torch.cli.dataset_tool\n"
         "import sid_lsg_torch.models.inception, sid_lsg_torch.models.clip_vision\n"
         "import sid_lsg_torch.utils.misc, sid_lsg_torch.utils.resample\n"
         "import sid_lsg_torch.models.edm_networks, sid_lsg_torch.models.stylegan_t\n"
